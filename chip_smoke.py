@@ -13,9 +13,13 @@ failure:
    shapes the serving path gives it (the flagship's four VGG stages at 8
    tasks x 25 images x 48 channels) and at ragged shapes: forward outputs,
    statistics, and gradients of the autograd.Function against autograd
-   of the plain version. Time kernel, plain version and the library
-   yardstick (``F.batch_norm(training=True)`` + ``relu_``, timed only,
-   never called by the port) with CUDA events after warm-up (median).
+   of the plain version; forward outputs at one row, fewer rows than SMs,
+   rows not a multiple of the SM count and an unaligned view; two
+   launches on the same x bitwise equal. Time kernel, plain version and
+   the library yardstick (``F.batch_norm(training=True)`` + ``relu_``,
+   timed only, never called by the port) after warm-up: wall (CUDA
+   events around one call, median) and device (the profiler's kernel
+   time per call, which must be one kernel for the BN kernel).
 3. Serve at the flagship's full width through ``ServingEngine``
    (experiment_config/mini-imagenet_maml++_5-way_5-shot_DA_b12.json with
    bn_backend='pallas', seeded random weights): 16 uint8 requests plus a
@@ -53,7 +57,11 @@ F32_FLOP_PER_S = 67e12
 # (R, P) = (25 images x H x W, 8 tasks x 48 channels), one per VGG stage.
 TASKS, SHOTS, FILTERS = 8, 25, 48
 STAGE_HW = (84, 42, 21, 10)
+SHAPES = [(SHOTS * hw * hw, TASKS * FILTERS) for hw in STAGE_HW]
 RAGGED = ((1001, 7), (3001, 97))
+# ((R, P), element offset of x in its buffer): one row, fewer rows than
+# SMs, rows not a multiple of the SM count, and an unaligned view.
+SMALL = (((1, 384), 0), ((100, 384), 0), ((1000, 384), 0), ((3001, 384), 1))
 
 
 def _card_line() -> str:
@@ -72,6 +80,8 @@ def _bandwidth(name: str) -> float:
 
 
 def _median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Wall time of one call: CUDA events around each call, median. It
+    includes the host's launch cost whenever the device waits on it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -85,6 +95,27 @@ def _median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, iters: int = 20):
+    """Device time of one call: the profiler's kernel durations summed over
+    ``iters`` calls, per call, and the device kernels per call; (None, None)
+    when the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None, None
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    return us / 1e3 / iters, len(kernels) / iters
 
 
 def _close(name: str, got, want, rtol: float, atol: float) -> float:
@@ -102,6 +133,61 @@ def _close(name: str, got, want, rtol: float, atol: float) -> float:
     return float(err.max().item())
 
 
+def _small_shapes_and_determinism(gen) -> None:
+    """Forward-only checks of the BN kernel against its plain version where
+    the launch plan is at its edges: one row, fewer rows than SMs, rows not
+    a multiple of the SM count, and an unaligned view (the scalar path);
+    then bitwise equality of two launches on the same x."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+
+    for (r, p), offset in SMALL:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.empty(r * p + offset, dtype=dtype,
+                            device="cuda")[offset:].view(r, p)
+            x.copy_(torch.randn(r, p, device="cuda", generator=gen) * 2.0
+                    + 0.3)
+            gamma = torch.rand(p, device="cuda", generator=gen) + 0.5
+            beta = torch.randn(p, device="cuda", generator=gen) * 0.1
+            rtol, atol = ((1.6e-2, 1e-2) if dtype == torch.bfloat16
+                          else (1e-4, 1e-5))
+            if r == 1:
+                # One row: var is 0, scale = gamma/sqrt(eps) ~ 316 gamma,
+                # and y = x*scale + shift cancels two terms of size
+                # |x*scale|; a last-bit difference of 1/sqrt(eps) (the
+                # plain version's rsqrt, the kernel's rounded 1/sqrt)
+                # shows at that size, so atol is rtol of it.
+                atol = rtol * float((x.float().abs().max()
+                                     * gamma.max() / 1e-5 ** 0.5).item())
+            for slope in (0.0, 0.1, 1.0):
+                tag = (f"bn_act {(r, p)} {dtype} slope={slope}"
+                       f"{' unaligned' if offset else ''}")
+                with torch.no_grad():
+                    k = bn_act.bn_act(x, gamma, beta, 1e-5, slope)
+                    ref = bn_act.bn_act(x, gamma, beta, 1e-5, slope,
+                                        plain=True)
+                _close(tag + " y", k[0], ref[0], rtol, atol)
+                _close(tag + " mean", k[1], ref[1], 1e-5, 1e-5)
+                _close(tag + " var", k[2], ref[2], 1e-4, 1e-5)
+    for r, p in SHAPES + [(100, 384)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
+                 + 0.3).to(dtype)
+            gamma = torch.rand(p, device="cuda", generator=gen) + 0.5
+            beta = torch.randn(p, device="cuda", generator=gen) * 0.1
+            with torch.no_grad():
+                first = bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+                second = bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+            for name, u, v in zip(("y", "mean", "var"), first, second):
+                if not torch.equal(u, v):
+                    raise AssertionError(f"bn_act {(r, p)} {dtype}: two "
+                                         f"launches differ in {name}")
+    torch.cuda.synchronize()
+    print(f"bn_act small/unaligned checks passed: {len(SMALL)} shapes x 2 "
+          f"dtypes x 3 slopes; bitwise equal reruns at "
+          f"{len(SHAPES) + 1} shapes x 2 dtypes", flush=True)
+
+
 def check_bn_act(device_name: str, card: str) -> dict:
     """Phase 2 for the BN+activation kernel; returns its kernels entry
     (``launches`` filled in by phase 3)."""
@@ -111,10 +197,9 @@ def check_bn_act(device_name: str, card: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bw = _bandwidth(device_name)
-    shapes = [(SHOTS * hw * hw, TASKS * FILTERS) for hw in STAGE_HW]
     max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
     stages = []
-    for r, p in shapes + list(RAGGED):
+    for r, p in SHAPES + list(RAGGED):
         for dtype in (torch.bfloat16, torch.float32):
             for slope in (0.0, 0.1, 1.0):
                 x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
@@ -172,45 +257,66 @@ def check_bn_act(device_name: str, card: str) -> dict:
                                       ref[3:]):
                     scale = float(b.abs().max().item()) or 1.0
                     _close(f"{tag} {name}", a, b, grtol, grtol * scale)
-        if (r, p) not in shapes:
-            continue
-        # Timing at the serving dtype (bf16) and activation (relu).
+    print(f"bn_act checks passed: {len(SHAPES) + len(RAGGED)} shapes x "
+          f"2 dtypes x 3 slopes, forward max abs err bf16 "
+          f"{max_err[torch.bfloat16]:.3e}, f32 {max_err[torch.float32]:.3e}",
+          flush=True)
+    _small_shapes_and_determinism(gen)
+
+    # Timing at the serving dtype (bf16) and activation (relu). Wall: one
+    # call between CUDA events (host launch cost included where the device
+    # waits on it). Device: the profiler's kernel time per call.
+    for r, p in SHAPES:
         x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
              + 0.3).to(torch.bfloat16)
         gamma = torch.rand(p, device="cuda", generator=gen) + 0.5
         beta = torch.randn(p, device="cuda", generator=gen) * 0.1
         hw = int(round((r // SHOTS) ** 0.5))
         x4 = x.view(SHOTS, hw, hw, p).permute(0, 3, 1, 2)  # channels_last
+
+        def kernel():
+            return bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+
+        def library():
+            return F.batch_norm(x4, None, None, gamma, beta, training=True,
+                                eps=1e-5).relu_()
+
         with torch.no_grad():
-            ms = _median_ms(lambda: bn_act.bn_act(x, gamma, beta, 1e-5, 0.0))
+            ms = _median_ms(kernel)
             plain_ms = _median_ms(lambda: bn_act.bn_act(
                 x, gamma, beta, 1e-5, 0.0, plain=True))
-            lib_ms = _median_ms(lambda: F.batch_norm(
-                x4, None, None, gamma, beta, training=True,
-                eps=1e-5).relu_())
+            lib_ms = _median_ms(library)
+            dev_ms, per_call = _device_ms(kernel)
+            lib_dev_ms, lib_per_call = _device_ms(library)
+        if per_call is not None and per_call != 1:
+            raise AssertionError(f"bn_act {r}x{p}: {per_call} device "
+                                 f"kernels per call, want 1")
         nbytes = 2 * r * p * x.element_size() + 4 * p * 4
         flops = 8 * r * p   # stats 3/elem, normalize+act 5/elem
         bound_s = max(nbytes / bw, flops / F32_FLOP_PER_S)
-        stages.append({"shape": [r, p], "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": lib_ms, "bound_ms": bound_s * 1e3,
+        stages.append({"shape": [r, p], "ms": ms, "device_ms": dev_ms,
+                       "kernels_per_call": per_call,
+                       "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "library_device_ms": lib_dev_ms,
+                       "library_kernels_per_call": lib_per_call,
+                       "bound_ms": bound_s * 1e3,
                        "bound_by": ("bytes" if nbytes / bw
                                     >= flops / F32_FLOP_PER_S
                                     else "operations")})
-        print(f"bn_act {r}x{p} bf16 relu: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.batch_norm+relu_ {lib_ms:.4f} ms, "
-              f"bound {bound_s * 1e3:.4f} ms ({card})", flush=True)
-    print(f"bn_act checks passed: {len(shapes) + len(RAGGED)} shapes x "
-          f"2 dtypes x 3 slopes, forward max abs err bf16 "
-          f"{max_err[torch.bfloat16]:.3e}, f32 {max_err[torch.float32]:.3e}",
-          flush=True)
+        print(f"bn_act {r}x{p} bf16 relu: kernel wall {ms:.4f} ms, device "
+              f"{dev_ms} ms ({per_call} kernels/call); plain {plain_ms:.4f} "
+              f"ms; F.batch_norm+relu_ wall {lib_ms:.4f} ms, device "
+              f"{lib_dev_ms} ms ({lib_per_call} kernels/call); bound "
+              f"{bound_s * 1e3:.4f} ms ({card})", flush=True)
     top = stages[0]
     return {"name": "bn_act", "route": "cuda",
             "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/bn_act.cu",
             "replaces": "howtotrainyourmamlpytorch_tpu/ops/pallas_fused.py:67",
             "launches": None, "max_abs_err": max(max_err.values()),
-            "ms": top["ms"],
+            "ms": top["ms"], "device_ms": top["device_ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "library_device_ms": top["library_device_ms"],
             "shape": top["shape"], "dtype": "bfloat16", "stages": stages}
 
 

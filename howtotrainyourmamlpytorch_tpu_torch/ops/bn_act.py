@@ -31,7 +31,8 @@ batch with that task's own statistics (the JAX package's per-task
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -41,10 +42,15 @@ from howtotrainyourmamlpytorch_tpu_torch.ops import build
 # the CUDA kernel is launched.
 launches = 0
 
-# Rows per stats block: chunks are summed in a fixed order by the finalize
-# pass, so statistics are bitwise reproducible from run to run.
+# The sum order (csrc/bn_act.cu): chunks of max(256, ceil(R/65535)) rows,
+# each column's chunk summed in 8 row lanes. Shared memory of a block: 16
+# bytes of mbarriers, the 12 warps' lane folds (32 x 2*vec floats each),
+# and for the vector path a ring of two pieces of 128 rows x 49 16-byte
+# slots.
 _CHUNK_ROWS = 256
-_MAX_CHUNKS = 65535          # the stats grid's y extent
+_MAX_CHUNKS = 65535
+_FOLD_BYTES = 12 * 32 * 2 * 4
+_STAGE_BYTES = 2 * 128 * 49 * 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -91,44 +97,91 @@ def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> None:
                              f"got {tuple(t.shape)} {t.dtype} {t.device}")
 
 
+class Plan(NamedTuple):
+    """How one launch covers an ``(R, P)`` matrix (see csrc/bn_act.cu)."""
+    vec: int           # elements per access: 16 bytes' worth, or 1
+    blocks: int        # one per SM, all co-resident
+    chunk_rows: int    # rows per chunk of the sum order
+    n_chunks: int
+    smem_bytes: int    # dynamic shared memory per block
+    scratch_floats: int  # mean | var | scale | shift | 2 x n_chunks x P
+
+
+def chunking(rows: int) -> Tuple[int, int]:
+    """``(chunk_rows, n_chunks)``: the chunks whose partial sums the kernel
+    adds in order."""
+    chunk_rows = max(_CHUNK_ROWS, -(-rows // _MAX_CHUNKS))
+    return chunk_rows, -(-rows // chunk_rows)
+
+
+def slab(rows: int, blocks: int, b: int) -> Tuple[int, int]:
+    """Rows ``[r0, r1)`` that block ``b`` normalizes."""
+    return rows * b // blocks, rows * (b + 1) // blocks
+
+
+@functools.lru_cache(maxsize=256)
+def plan(rows: int, cols: int, itemsize: int, aligned: bool,
+         blocks: int) -> Plan:
+    """The launch plan for ``rows x cols`` elements of ``itemsize`` bytes
+    on a card with ``blocks`` SMs; ``aligned``: x's data is 16-byte
+    aligned. Pure integer arithmetic (the CPU tests pin it)."""
+    wide = 16 // itemsize
+    vec = wide if aligned and cols % wide == 0 else 1
+    chunk_rows, n_chunks = chunking(rows)
+    return Plan(vec=vec, blocks=blocks, chunk_rows=chunk_rows,
+                n_chunks=n_chunks,
+                smem_bytes=(16 + _FOLD_BYTES * vec
+                            + (_STAGE_BYTES if vec > 1 else 0)),
+                scratch_floats=4 * cols + 2 * n_chunks * cols)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             eps: float, slope: float
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on ``torch.cuda.current_stream()``."""
+    """Launch the CUDA kernel on x's device's current stream: one device
+    kernel. ``mean`` and ``var`` are views of its one scratch buffer."""
     global launches
     _check(x, gamma, beta)
     gamma, beta = gamma.contiguous(), beta.contiguous()
     r, p = x.shape
-    chunk_rows = max(_CHUNK_ROWS, -(-r // _MAX_CHUNKS))
-    n_chunks = -(-r // chunk_rows)
+    index = x.device.index
+    pl = plan(r, p, x.element_size(), x.data_ptr() % 16 == 0,
+              _sm_count(index))
     y = torch.empty_like(x)
-    mean = torch.empty(p, dtype=torch.float32, device=x.device)
-    var = torch.empty(p, dtype=torch.float32, device=x.device)
-    partial = torch.empty(2 * n_chunks * p, dtype=torch.float32,
+    scratch = torch.empty(pl.scratch_floats, dtype=torch.float32,
                           device=x.device)
-    coef = torch.empty(2 * p, dtype=torch.float32, device=x.device)
-    # The slope is applied in x's dtype (jnp.asarray(slope, y.dtype)).
-    slope_t = float(torch.tensor(slope, dtype=x.dtype))
     fn = _kernel_fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    # The launch goes to the calling thread's current device: make it x's
+    # for the call (what torch.cuda.device does, without its wrapper).
+    prev = torch.cuda._exchange_device(index)
+    try:
+        # The kernel rounds the slope to x's dtype (jnp.asarray(slope,
+        # y.dtype) in the reference).
         err = fn(x.data_ptr(), y.data_ptr(), gamma.data_ptr(),
-                 beta.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                 partial.data_ptr(), coef.data_ptr(), r, p, chunk_rows,
-                 _DTYPE_CODES[x.dtype], float(eps), slope_t, stream)
+                 beta.data_ptr(), scratch.data_ptr(), r, p,
+                 _DTYPE_CODES[x.dtype], eps, slope, pl.vec, pl.blocks,
+                 pl.chunk_rows, pl.n_chunks, pl.smem_bytes,
+                 torch._C._cuda_getCurrentRawStream(index))
+    finally:
+        torch.cuda._maybe_exchange_device(prev)
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed: CUDA error {err}")
     launches += 1
-    return y, mean, var
+    return y, scratch[:p], scratch[p:2 * p]
 
 
 def _kernel_fn():
     fn = build.load("bn_act").lib.bn_act_forward
     if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_float, vp]
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, i32, i32,
+                       ctypes.c_float, ctypes.c_float, i32, i32, i32, i32,
+                       i32, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -186,7 +239,11 @@ def bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(act(batch_norm(x)·gamma + beta), mean, var)`` with statistics per
     column of the ``(R, P)`` matrix ``x``. ``plain=True`` runs the plain
-    version (autograd through its ops); otherwise :class:`BnActFunction`."""
+    version (autograd through its ops); otherwise :class:`BnActFunction`,
+    or on a CUDA tensor that needs no gradient the kernel alone."""
     if plain:
         return bn_act_plain(x, gamma, beta, eps, slope)
+    if x.is_cuda and not (torch.is_grad_enabled() and (
+            x.requires_grad or gamma.requires_grad or beta.requires_grad)):
+        return _launch(x, gamma, beta, eps, slope)   # no graph to record
     return BnActFunction.apply(x, gamma, beta, eps, slope)

@@ -9,10 +9,10 @@ bn_backend='pallas', seeded random weights, 8 tasks x 25 support + 25
 query, 5 first-order adapt steps, bf16), warms it up, then serves
 ``--batches`` full batches of fresh uint8 requests under
 ``torch.profiler``. Prints one JSON line: host wall time per batch, the
-device time per batch split by kernel family (the BN kernel, cuDNN
-convolutions, pooling, matrix products, everything else), the device's
-idle share, the top kernels by device time, and the card's name and
-power limit. ``--bn composite`` serves with bn_backend='composite' (plain
+device time and device kernels per batch split by kernel family (the BN
+kernel, cuDNN convolutions, pooling, matrix products, everything else),
+the device's idle share, the top kernels by device time, and the card's
+name and power limit. ``--bn composite`` serves with bn_backend='composite' (plain
 PyTorch BN, no hand-written kernel) for comparison.
 """
 
@@ -32,7 +32,7 @@ FLAGSHIP = os.path.join(REPO, "experiment_config",
 
 # Kernel-name fragments -> family, first match wins.
 FAMILIES = (
-    ("bn_act", ("stats_partial", "finalize", "normalize_act")),
+    ("bn_act", ("bn_act_persistent",)),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad",
               "winograd", "nhwc", "nchw")),
     ("pool", ("max_pool", "pool")),
@@ -114,6 +114,7 @@ def main() -> int:
             walls.append(time.perf_counter() - t0)
 
     by_family = defaultdict(float)
+    family_launches = defaultdict(int)
     by_kernel = defaultdict(float)
     launches = defaultdict(int)
     for evt in prof.events():
@@ -121,6 +122,7 @@ def main() -> int:
             continue
         us = evt.time_range.elapsed_us()
         by_family[family(evt.name)] += us
+        family_launches[family(evt.name)] += 1
         by_kernel[evt.name] += us
         launches[evt.name] += 1
     nb = args.batches
@@ -138,6 +140,8 @@ def main() -> int:
         "family_ms_per_batch": {f: v / 1e3 / nb
                                 for f, v in sorted(by_family.items(),
                                                    key=lambda kv: -kv[1])},
+        "family_launches_per_batch": {f: n / nb for f, n in
+                                      sorted(family_launches.items())},
         "top_kernels": [{"name": name[:120], "ms_per_batch": v / 1e3 / nb,
                          "launches_per_batch": launches[name] / nb}
                         for name, v in top]}))

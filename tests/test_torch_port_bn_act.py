@@ -211,3 +211,45 @@ def test_wrapper_rejects_bad_inputs():
         bn_act._check(x, torch.ones(4), torch.zeros(3))
     with pytest.raises(ValueError):
         bn_act._check(torch.zeros(0, 3), torch.ones(3), torch.zeros(3))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 131, 132, 133, 2500, 176400])
+def test_plan_slabs_cover_rows_once(rows):
+    """The normalize pass's slabs tile [0, R) exactly once, balanced to one
+    row; the chunks of the sum order (256 rows) cover R; the scratch is
+    sized as the C interface reads it (mean | var | scale | shift |
+    per-chunk partial sums | partial squares) and the shared memory as it
+    checks it (16 B of mbarriers, the 12 warps' lane folds, and for the
+    16-byte path a ring of 2 x 128 rows x 49 slots), within the 227 KB a
+    Hopper block may use."""
+    blocks = 132
+    bounds = [bn_act.slab(rows, blocks, b) for b in range(blocks)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == rows
+    for (_, end), (start, _) in zip(bounds, bounds[1:]):
+        assert end == start
+    sizes = [r1 - r0 for r0, r1 in bounds]
+    assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+    chunk_rows, n_chunks = bn_act.chunking(rows)
+    assert chunk_rows == 256 and (n_chunks - 1) * 256 < rows <= n_chunks * 256
+    for cols in (1, 7, 97, 384, 1000):
+        for itemsize in (2, 4):
+            for aligned in (False, True):
+                pl = bn_act.plan(rows, cols, itemsize, aligned, blocks)
+                assert (pl.chunk_rows, pl.n_chunks) == (chunk_rows, n_chunks)
+                assert pl.scratch_floats == 4 * cols + 2 * n_chunks * cols
+                wide = 16 // itemsize
+                assert pl.vec == (wide if aligned and cols % wide == 0
+                                  else 1)
+                assert pl.smem_bytes == (16 + 12 * 32 * 2 * pl.vec * 4
+                                         + (2 * 128 * 49 * 16 if pl.vec > 1
+                                            else 0))
+                assert pl.smem_bytes <= 232448
+
+
+def test_chunking_caps_the_chunk_count():
+    """Past 65535 chunks of 256 rows the chunks grow, as in the sum order
+    the kernel keeps (that of the three-pass kernel it replaced)."""
+    rows = 65535 * 256 + 1
+    chunk_rows, n_chunks = bn_act.chunking(rows)
+    assert chunk_rows == 257 and n_chunks <= 65535
+    assert (n_chunks - 1) * chunk_rows < rows <= n_chunks * chunk_rows

@@ -21,6 +21,11 @@ from howtotrainyourmamlpytorch_tpu_torch.serve import (FewShotRequest,
 
 pytestmark = pytest.mark.cuda
 
+# The flagship's serving shapes (25 images x H x W, 8 tasks x 48 channels),
+# and rows fewer than and not a multiple of the SM count.
+STAGES = [(25 * hw * hw, 384) for hw in (84, 42, 21, 10)]
+SMALL = [(100, 384), (1000, 384)]
+
 
 @pytest.fixture
 def cuda_device():
@@ -32,7 +37,7 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1001, 7), (4096, 384)])
+@pytest.mark.parametrize("shape", [(1001, 7), (4096, 384)] + STAGES + SMALL)
 def test_cuda_tensor_launches_kernel(cuda_device, shape, dtype):
     """On a CUDA tensor the wrapper launches the kernel (counted once) and
     agrees with the plain version on the card: bf16 bitwise up to the
@@ -87,3 +92,66 @@ def test_engine_on_the_card_launches_the_kernel(cuda_device):
     (hit,) = engine.drain()
     assert hit.cache_hit and engine.adapt_invocations == 1
     np.testing.assert_array_equal(hit.logits, resp.logits)
+
+
+def _stage_inputs(shape, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal(shape) * 2 + 0.3).astype(
+        np.float32)).to(device, dtype)
+    gamma = torch.from_numpy((rng.random(shape[1]) + 0.5).astype(
+        np.float32)).to(device)
+    beta = torch.from_numpy((rng.standard_normal(shape[1]) * 0.1).astype(
+        np.float32)).to(device)
+    return x, gamma, beta
+
+
+@pytest.mark.parametrize("shape", [STAGES[0], STAGES[3], (100, 384)])
+def test_kernel_is_bitwise_deterministic(cuda_device, shape):
+    """No float atomics: two launches on the same x agree bitwise in y,
+    mean and var (the serving cache relies on it)."""
+    x, gamma, beta = _stage_inputs(shape, torch.bfloat16, cuda_device)
+    first = bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+    second = bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unaligned_view_takes_scalar_path(cuda_device, dtype):
+    """A contiguous view one element into its storage is not 16-byte
+    aligned: the same kernel runs with scalar loads and still agrees with
+    the plain version."""
+    shape = (3001, 384)
+    x0, gamma, beta = _stage_inputs(shape, dtype, cuda_device, seed=2)
+    x = torch.empty(x0.numel() + 1, dtype=dtype,
+                    device=cuda_device)[1:].view(shape)
+    x.copy_(x0)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert bn_act.plan(*shape, x.element_size(), False,
+                       bn_act._sm_count(x.device.index)).vec == 1
+    y, m, v = bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+    y_p, m_p, v_p = bn_act.bn_act(x0, gamma, beta, 1e-5, 0.0, plain=True)
+    rtol, atol = ((1.6e-2, 1e-2) if dtype == torch.bfloat16 else
+                  (1e-4, 1e-5))
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(v, v_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_row_matches_plain(cuda_device, dtype):
+    """One row: var is 0, scale = gamma/sqrt(eps) ~ 316 gamma, and y = x *
+    scale + shift cancels two terms of size |x * scale|. A last-bit
+    difference of 1/sqrt(eps) (the plain version's rsqrt, the kernel's
+    rounded 1/sqrt) shows at that size, so y's atol is the dtype's rtol of
+    max |x * scale|; mean and var are exact in both."""
+    x, gamma, beta = _stage_inputs((1, 384), dtype, cuda_device, seed=3)
+    y, m, v = bn_act.bn_act(x, gamma, beta, 1e-5, 0.1)
+    y_p, m_p, v_p = bn_act.bn_act(x, gamma, beta, 1e-5, 0.1, plain=True)
+    rtol = 1.6e-2 if dtype == torch.bfloat16 else 1e-4
+    atol = rtol * float((x.float().abs().max() * gamma.max()
+                         / 1e-5 ** 0.5).item())
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(m, m_p, rtol=0, atol=0)
+    torch.testing.assert_close(v, v_p, rtol=0, atol=0)
