@@ -6,14 +6,17 @@ ReLU → 2x2 max-pool] → flatten (NHWC order) → linear to
 ``num_output_units`` logits::
 
     init(generator)                                  -> (params, bn_state)
-    apply(params, bn_state, x, step, training, plain=False)
+    apply(params, bn_state, x, step, training, plain=False, remat=False)
                                                      -> (logits, new_state)
 
 ``init`` returns one task's tensors (no task axis), on the CPU.
 ``apply`` takes a task-batched forward: every params/state leaf has a
 leading task axis ``T`` (tree.stack_tasks), ``x`` is ``(T, N, H, W, C)``
 NHWC, logits are ``(T, N, out)`` f32. ``plain=True`` runs the BN
-kernel's plain PyTorch version (bn_backend='pallas' only).
+kernel's plain PyTorch version (bn_backend='pallas' only). ``remat=True``
+runs each stage (conv → BN → ReLU → pool) as one
+``torch.utils.checkpoint`` segment: its input stays saved, the rest is
+recomputed in the backward (meta/inner.py, ``remat_policy='block_outs'``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.models import layers
@@ -56,23 +60,33 @@ def _stage_geometry(cfg: MAMLConfig) -> Tuple[int, int]:
 
 def _features_apply(cfg: MAMLConfig, params: Params, state: State,
                     x: torch.Tensor, step: int, training: bool,
-                    plain: bool) -> Tuple[torch.Tensor, State]:
+                    plain: bool, remat: bool) -> Tuple[torch.Tensor, State]:
     """Conv tower: ``(T, N, H, W, C)`` -> ``(T, N, features)`` and the
     new norm state."""
     num_tasks = x.shape[0]
     compute_dtype = _compute_dtype(cfg)
     stride = 1 if cfg.max_pooling else 2
     padding = "SAME" if cfg.conv_padding else "VALID"
+
+    def stage(conv, norm, norm_state, h):
+        h = layers.conv2d_apply(conv, h, stride=stride, padding=padding,
+                                compute_dtype=compute_dtype)
+        h, new = layers.batch_norm_act_apply(
+            cfg, norm, norm_state, h, step, training=training,
+            negative_slope=0.0, plain=plain)
+        if cfg.max_pooling:
+            h = layers.max_pool2d(h)
+        return h, new
+
     h = layers.to_task_channels(x)
     new_state: State = {}
     for i in range(cfg.num_stages):
-        h = layers.conv2d_apply(params[f"conv{i}"], h, stride=stride,
-                                padding=padding, compute_dtype=compute_dtype)
-        h, new_state[f"norm{i}"] = layers.batch_norm_act_apply(
-            cfg, params[f"norm{i}"], state[f"norm{i}"], h, step,
-            training=training, negative_slope=0.0, plain=plain)
-        if cfg.max_pooling:
-            h = layers.max_pool2d(h)
+        args = (params[f"conv{i}"], params[f"norm{i}"], state[f"norm{i}"], h)
+        if remat:
+            h, new_state[f"norm{i}"] = checkpoint(
+                stage, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, new_state[f"norm{i}"] = stage(*args)
     return layers.flatten_tasks(h, num_tasks), new_state
 
 
@@ -101,10 +115,10 @@ def make_vgg(cfg: MAMLConfig) -> Tuple[InitFn, ApplyFn]:
         return params, state
 
     def apply(params: Params, state: State, x: torch.Tensor, step: int,
-              training: bool, plain: bool = False
+              training: bool, plain: bool = False, remat: bool = False
               ) -> Tuple[torch.Tensor, State]:
         feats, new_state = _features_apply(cfg, params, state, x, step,
-                                           training, plain)
+                                           training, plain, remat)
         logits = layers.linear_apply(params["linear"], feats,
                                      compute_dtype=_compute_dtype(cfg))
         return logits.float(), new_state

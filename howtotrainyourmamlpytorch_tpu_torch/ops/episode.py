@@ -1,6 +1,7 @@
 """Device-side image decode: uint8 wire pixels -> normalized f32.
 
-Counterpart of the JAX package's ``ops/episode.py § normalize_images``:
+Counterpart of the JAX package's ``ops/episode.py § normalize_images`` and
+``§ normalize_episode``:
 /255 to [0, 1], optional channel reversal, then ``(x − mean)·inv_std``
 with the dataset's constants (``cfg.image_norm_resolved``). Images stay
 NHWC here; float inputs pass through untouched. Requests cross to the
@@ -26,3 +27,10 @@ def normalize_images(cfg: MAMLConfig, x: torch.Tensor) -> torch.Tensor:
         xf = ((xf - torch.tensor(mean, dtype=torch.float32, device=x.device))
               * torch.tensor(inv_std, dtype=torch.float32, device=x.device))
     return xf
+
+
+def normalize_episode(cfg: MAMLConfig, ep):
+    """Decode an episode batch's support and target images
+    (:func:`normalize_images`); labels pass through."""
+    return ep._replace(support_x=normalize_images(cfg, ep.support_x),
+                       target_x=normalize_images(cfg, ep.target_x))

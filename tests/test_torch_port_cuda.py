@@ -1,5 +1,5 @@
 """The port on the card: the hand-written kernels against their plain
-versions, and the serving path end to end at a small size.
+versions, and the serving and training paths end to end at a small size.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit; each skips
 elsewhere (decided in a fixture, when the test runs). This file imports
@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
-from howtotrainyourmamlpytorch_tpu_torch.meta.outer import init_train_state
+from howtotrainyourmamlpytorch_tpu_torch.data import MetaLearningDataLoader
+from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
+    init_train_state, make_meta_gradients, make_train_step)
 from howtotrainyourmamlpytorch_tpu_torch.models import make_model
 from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
 from howtotrainyourmamlpytorch_tpu_torch.serve import (FewShotRequest,
@@ -25,6 +27,10 @@ pytestmark = pytest.mark.cuda
 # and rows fewer than and not a multiple of the SM count.
 STAGES = [(25 * hw * hw, 384) for hw in (84, 42, 21, 10)]
 SMALL = [(100, 384), (1000, 384)]
+# Training (one task per microbatch: 48 columns) and the eval step's 24
+# tasks at stage 0.
+TRAIN_STAGES = [(25 * hw * hw, 48) for hw in (84, 42, 21, 10)]
+EVAL_STAGE = (25 * 84 * 84, 24 * 48)
 
 
 @pytest.fixture
@@ -37,7 +43,8 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1001, 7), (4096, 384)] + STAGES + SMALL)
+@pytest.mark.parametrize("shape", [(1001, 7), (4096, 384)] + STAGES + SMALL
+                         + TRAIN_STAGES + [EVAL_STAGE])
 def test_cuda_tensor_launches_kernel(cuda_device, shape, dtype):
     """On a CUDA tensor the wrapper launches the kernel (counted once) and
     agrees with the plain version on the card: bf16 bitwise up to the
@@ -155,3 +162,81 @@ def test_single_row_matches_plain(cuda_device, dtype):
     torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
     torch.testing.assert_close(m, m_p, rtol=0, atol=0)
     torch.testing.assert_close(v, v_p, rtol=0, atol=0)
+
+
+def test_train_step_on_the_card_kernel_matches_plain(cuda_device):
+    """A tiny flagship-shaped training run on the card: loader batches,
+    one first-order MSL step and one second-order step through the kernel
+    (launches as derived: stages x (K + targets x 2) per microbatch with
+    'block_outs' remat), then a second-order meta-gradient with the
+    kernel against its plain version (loss 1 %, cosine 0.99)."""
+    cfg = MAMLConfig(dataset_name="synthetic", image_height=12,
+                     image_width=12, image_channels=3,
+                     num_classes_per_set=3, num_samples_per_class=2,
+                     num_target_samples=2, cnn_num_filters=8, num_stages=2,
+                     number_of_training_steps_per_iter=2,
+                     number_of_evaluation_steps_per_iter=2, batch_size=4,
+                     task_microbatches=2, bn_backend="pallas",
+                     bn_fast_math=True, clamp_meta_grad_value=10.0)
+    init, apply = make_model(cfg)
+    state = init_train_state(cfg, init, seed=0, device=cuda_device)
+    batches = MetaLearningDataLoader(cfg, device=cuda_device)\
+        .get_train_batches(0, 3)
+    step = make_train_step(cfg, apply)
+    for (so, msl), per_micro in (((False, True), 2 * (2 + 2 * 2)),
+                                 ((True, False), 2 * (2 + 1 * 2))):
+        bn_act.reset_launches()
+        new, m = step(state, next(batches), 0, second_order=so,
+                      use_msl=msl)
+        torch.cuda.synchronize()
+        assert bn_act.launches == 2 * per_micro
+        assert new.step == state.step + 1 and torch.isfinite(m.loss)
+        state = new
+    batch = next(batches)
+    outs = [make_meta_gradients(cfg, apply)(
+        state, batch, 41, second_order=True, use_msl=False, plain=plain)
+        for plain in (False, True)]
+    (lk, *_, gk), (lp, *_, gp) = outs
+    assert abs(float(lk) - float(lp)) <= 1e-2 * abs(float(lp))
+    flat = lambda g: torch.cat([t.flatten() for sub in g.values()
+                                for leaf in sub.values()
+                                for t in leaf.values()])
+    a, b = flat(gk).double(), flat(gp).double()
+    assert float(a @ b / (a.norm() * b.norm())) >= 0.99
+
+
+@pytest.mark.parametrize("policy", ["block_outs", "nothing"])
+def test_remat_on_the_card_matches_no_remat(cuda_device, policy):
+    """Checkpoint recomputes launch the kernel again on the same inputs
+    (it is bitwise deterministic), so remat changes no meta-gradient
+    (second order, MSL: the whole-step segment runs the inner
+    ``autograd.grad`` inside the checkpoint). cuDNN's weight gradients may
+    sum in another order from run to run, so leaves are compared by
+    cosine (>= 0.999), conv biases excepted: their meta-gradient is
+    analytically zero and holds rounding noise only."""
+    base = MAMLConfig(dataset_name="synthetic", image_height=12,
+                      image_width=12, image_channels=3,
+                      num_classes_per_set=3, num_samples_per_class=2,
+                      num_target_samples=2, cnn_num_filters=8, num_stages=2,
+                      number_of_training_steps_per_iter=2, batch_size=2,
+                      bn_backend="pallas", bn_fast_math=True)
+    init, apply = make_model(base)
+    state = init_train_state(base, init, seed=1, device=cuda_device)
+    batch = next(MetaLearningDataLoader(base, device=cuda_device)
+                 .get_train_batches(0, 1))
+    outs = [make_meta_gradients(base.replace(**kw), apply)(
+        state, batch, 0, second_order=True, use_msl=True)
+        for kw in (dict(remat_inner_steps=False),
+                   dict(remat_inner_steps=True, remat_policy=policy))]
+    (l0, *_, g0), (l1, *_, g1) = outs
+    torch.testing.assert_close(l1, l0, rtol=1e-6, atol=0)
+    for top in ("params", "lslr"):
+        for layer, sub in g0[top].items():
+            for leaf, t in sub.items():
+                if layer.startswith("conv") and leaf == "b":
+                    continue
+                a = g1[top][layer][leaf].double().flatten()
+                b = t.double().flatten()
+                if float(b.norm()) > 0:
+                    assert float(a @ b / (a.norm() * b.norm())) >= 0.999, (
+                        top, layer, leaf)
