@@ -138,8 +138,3 @@ class EpisodeSampler:
             sy = np.repeat(np.arange(n, dtype=np.int32), k)
             ty = np.repeat(np.arange(n, dtype=np.int32), t)
         return Episode(sx, sy, tx, ty)
-
-    def sample_batch(self, indices) -> Episode:
-        """Stack episodes on a leading task axis: the meta-batch."""
-        eps = [self.sample(i) for i in indices]
-        return Episode(*(np.stack(field) for field in zip(*eps)))

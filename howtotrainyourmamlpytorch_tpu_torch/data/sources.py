@@ -76,11 +76,6 @@ class ArraySource:
         device-side normalization path (4x fewer host->device bytes)."""
         return self._classes[class_name][indices]
 
-    def class_images(self, class_name: str) -> np.ndarray:
-        """The class's whole ``(n, H, W, C)`` uint8 block (the pack
-        CLI's bulk-read path; episodes use ``get_images_raw``)."""
-        return self._classes[class_name]
-
 
 class DiskImageSource:
     """Lazy class→file-path index over the reference's directory layouts.
@@ -218,19 +213,6 @@ class DiskImageSource:
                        indices: np.ndarray) -> np.ndarray:
         return self._load_class(class_name)[indices]
 
-    def class_images(self, class_name: str) -> np.ndarray:
-        """The class's whole decoded ``(n, H, W, C)`` uint8 block (the
-        pack CLI's bulk-read path)."""
-        return self._load_class(class_name)
-
-    def evict_class(self, class_name: str) -> None:
-        """Drop a memoized class block. The pack CLI streams a whole
-        split through ``class_images``; without eviction the memo would
-        pin the full decoded dataset in RAM on exactly the small login
-        boxes packing targets. Episodic training never calls this —
-        revisiting classes is the workload, the memo is the point."""
-        self._cache.pop(class_name, None)
-
 
 class SubsetSource:
     """Restrict a source to a subset of its classes, preserving order —
@@ -264,14 +246,6 @@ class SubsetSource:
     def get_images_raw(self, class_name: str,
                        indices: np.ndarray) -> np.ndarray:
         return self._source.get_images_raw(class_name, indices)
-
-    def class_images(self, class_name: str) -> np.ndarray:
-        return self._source.class_images(class_name)
-
-    def evict_class(self, class_name: str) -> None:
-        evict = getattr(self._source, "evict_class", None)
-        if evict is not None:
-            evict(class_name)
 
 
 def split_class_names(names: Sequence[str],

@@ -28,9 +28,9 @@ pytestmark = pytest.mark.cuda
 STAGES = [(25 * hw * hw, 384) for hw in (84, 42, 21, 10)]
 SMALL = [(100, 384), (1000, 384)]
 # Training (one task per microbatch: 48 columns) and the eval step's 24
-# tasks at stage 0.
+# tasks at once (1152 columns).
 TRAIN_STAGES = [(25 * hw * hw, 48) for hw in (84, 42, 21, 10)]
-EVAL_STAGE = (25 * 84 * 84, 24 * 48)
+EVAL_STAGES = [(25 * hw * hw, 24 * 48) for hw in (84, 42, 21, 10)]
 
 
 @pytest.fixture
@@ -44,7 +44,7 @@ def cuda_device():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1001, 7), (4096, 384)] + STAGES + SMALL
-                         + TRAIN_STAGES + [EVAL_STAGE])
+                         + TRAIN_STAGES + EVAL_STAGES)
 def test_cuda_tensor_launches_kernel(cuda_device, shape, dtype):
     """On a CUDA tensor the wrapper launches the kernel (counted once) and
     agrees with the plain version on the card: bf16 bitwise up to the

@@ -39,6 +39,17 @@ def _configs(**kw):
     return JaxConfig(**kw), MAMLConfig(**kw)
 
 
+def _stacked(sampler, indices):
+    """Episodes ``indices`` of ``sampler`` stacked on a leading task axis
+    by hand, as a meta-batch."""
+    eps = [sampler.sample(i) for i in indices]
+    return [np.stack(field) for field in zip(*eps)]
+
+
+def _whole_class(src, name):
+    return src.get_images_raw(name, np.arange(src.num_images(name)))
+
+
 def _assert_episodes_equal(a, b):
     assert len(a) == len(b) == 4
     for x, y in zip(a, b):
@@ -67,7 +78,7 @@ def test_sampler_episodes_bitwise_equal_jax(uint8, augment, channels,
         ref.classes) == 12 * (4 if augment else 1)
     for idx in (0, 1, 17, 2 ** 33 + 3):
         _assert_episodes_equal(ours.sample(idx), ref.sample(idx))
-    _assert_episodes_equal(ours.sample_batch(range(4, 8)),
+    _assert_episodes_equal(_stacked(ours, range(4, 8)),
                            ref.sample_batch(range(4, 8)))
 
 
@@ -114,7 +125,7 @@ def test_disk_source_episodes_equal_jax(tmp_path, pre_split):
     if pre_split:
         assert isinstance(src, DiskImageSource)
     for name in src.class_names:
-        assert np.array_equal(src.class_images(name),
+        assert np.array_equal(_whole_class(src, name),
                               jsrc.class_images(name))
     jcfg, cfg = (c.replace(num_classes_per_set=2) for c in (jcfg, cfg))
     _assert_episodes_equal(EpisodeSampler(src, cfg, 1).sample(2),
@@ -131,7 +142,7 @@ def test_synthetic_fallback_equals_jax_and_packed_shard_raises(tmp_path):
     assert isinstance(src, SyntheticSource) and src.kind == "synthetic"
     assert src.class_names == jsrc.class_names
     for name in src.class_names[:3]:
-        assert np.array_equal(src.class_images(name),
+        assert np.array_equal(_whole_class(src, name),
                               jsrc.class_images(name))
     (tmp_path / "pack").mkdir()
     (tmp_path / "pack" / "val.mamlpack").write_bytes(b"MAMLPACK1")
@@ -171,7 +182,7 @@ def test_loader_train_batches_equal_jax_and_index_contract():
         assert all(t.device.type == "cpu" for t in a)
     # Train batch i is episodes [i*B, (i+1)*B) of the train stream.
     sampler = pl.sampler("train")
-    _assert_episodes_equal(ours[2], sampler.sample_batch(range(8, 12)))
+    _assert_episodes_equal(ours[2], _stacked(sampler, range(8, 12)))
     # Resuming at iteration 2 reproduces the uninterrupted run's batch.
     (resumed,) = list(pl.get_train_batches(2, 1))
     _assert_episodes_equal(resumed, [t.numpy() for t in ours[2]])
@@ -185,8 +196,8 @@ def test_loader_train_salt_matches_jax():
     (b,) = list(jl.get_train_batches(1, 1))
     _assert_episodes_equal(a, b)
     base = 1 * 4 + 2 * ploader._REWIND_SALT_STRIDE
-    _assert_episodes_equal(a, pl.sampler("train").sample_batch(
-        range(base, base + 4)))
+    _assert_episodes_equal(a, _stacked(pl.sampler("train"),
+                                       range(base, base + 4)))
     (val,) = list(pl.get_val_batches())[:1]
     pl.set_train_salt(0)
     _assert_episodes_equal(val, list(pl.get_val_batches())[0])
