@@ -47,6 +47,23 @@ failure:
    beside the control, bf16 against f32; then a profiled second-order
    step split by kernel family, and one second-order step per remat
    variant (time, peak memory).
+5. The trainer's CLI at the flagship's full width, in process:
+   ``train_maml_system.main`` on the flagship JSON with ``--bn_backend
+   pallas`` and overrides that cut only the run's length (``CLI_ARGS``: 2
+   epochs x 3 iterations, epoch 0 first order + MSL, epoch 1 second
+   order; 48 evaluation tasks; the top 2 checkpoints). It must exit 0
+   with two finite CSV rows, a ``test_summary.csv`` of 2 models over 48
+   episodes, ``train_model_{0,1,latest}.ckpt``, ``state.json``, a
+   committed ``MANIFEST.json`` whose records' CRCs verify,
+   ``REGISTRY.json``, checkpoints that load back (the latest bitwise into
+   the state the builder holds), and exactly the BN kernel launches
+   derived for that path (3360). Then the same run paused after epoch 0
+   and resumed with ``--continue_from_epoch latest`` must agree with it.
+   cuDNN runs deterministic algorithms in this phase
+   (``torch.backends.cudnn.deterministic``), so the resumed run is
+   expected to be bitwise the uninterrupted one; it is held by per-leaf
+   update cosines (``RESUME_COSINE``) and the epoch-1 train loss
+   (``RESUME_LOSS_RTOL``), and whether it is bitwise is printed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -92,6 +109,17 @@ EVAL_TASKS = 24
 EVAL_SHAPES = [(SHOTS * hw * hw, EVAL_TASKS * FILTERS) for hw in STAGE_HW]
 # Outer steps timed per training phase, after one warm-up step.
 TRAIN_STEPS = 3
+# Phase 5: the CLI's overrides of the flagship JSON (length only), and the
+# floors that hold the paused-and-resumed run against the uninterrupted
+# one: per weight leaf, the cosine of the two runs' updates from the
+# seeded init; the epoch-1 train loss, relative.
+CLI_ARGS = ["--bn_backend", "pallas", "--total_epochs", "2",
+            "--total_iter_per_epoch", "3",
+            "--first_order_to_second_order_epoch", "0",
+            "--multi_step_loss_num_epochs", "1",
+            "--num_evaluation_tasks", "48", "--max_models_to_save", "2"]
+RESUME_COSINE = 0.999
+RESUME_LOSS_RTOL = 1e-3
 
 
 def _card_line() -> str:
@@ -903,6 +931,188 @@ def train_flagship(entry: dict, card: str) -> None:
                              + "; ".join(failures))
 
 
+def _train_path_launches(cfg, epochs, iters, val_sweeps,
+                         test_models) -> int:
+    """BN-kernel launches a builder run makes: per train step, microbatches
+    x stages x (K support + targets x remat) forwards; per eval batch,
+    stages x (eval steps + 1); the batches of a sweep pad the evaluation
+    tasks up to a full last batch."""
+    s, k = cfg.num_stages, cfg.number_of_training_steps_per_iter
+    remat = 2 if (cfg.remat_inner_steps
+                  and cfg.remat_policy == "block_outs") else 1
+    micro = cfg.effective_task_microbatches()
+    train = sum(iters * micro * s * (k + (k if cfg.use_msl(e) else 1)
+                                     * remat) for e in range(epochs))
+    batches = -(-cfg.num_evaluation_tasks // cfg.effective_eval_batch_size)
+    per_sweep = batches * s * (cfg.number_of_evaluation_steps_per_iter + 1)
+    return train + (val_sweeps + test_models) * per_sweep
+
+
+def _state_leaves(state) -> dict:
+    """``{name: tensor}`` over params, LSLR, BN state and Adam's moments."""
+    trees = {"params": state.params, "lslr": state.lslr,
+             "bn_state": state.bn_state, "mu": state.opt_state.mu,
+             "nu": state.opt_state.nu}
+    out = {}
+
+    def walk(prefix, tree):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(f"{prefix}/{key}", value)
+            else:
+                out[f"{prefix}/{key}"] = value
+    walk("", trees)
+    return out
+
+
+def _cli_run(argv, root):
+    """One in-process CLI run; returns (exit code, builder, seconds)."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
+    builders = []
+    t0 = time.perf_counter()
+    rc = train_maml_system.main(
+        ["--name_of_args_json_file", FLAGSHIP, "--experiment_root", root]
+        + CLI_ARGS + argv, builders=builders)
+    torch.cuda.synchronize()
+    return rc, builders[0], time.perf_counter() - t0
+
+
+def cli_flagship(entry: dict, card: str) -> None:
+    """Phase 5: the trainer's CLI at flagship width; adds the BN kernel's
+    launches over the uninterrupted run to ``entry``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.ckpt.manifest import (
+        COMMITTED, Manifest, verify_record)
+    from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
+        init_train_state)
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
+        load_statistics)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs_dir = os.path.join(REPO, ".smoke_runs")
+    os.makedirs(runs_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_", dir=runs_dir)
+    try:
+        bn_act.reset_launches()
+        rc, builder, run_s = _cli_run([], os.path.join(tmp, "full"))
+        launches = bn_act.launches
+        cfg = builder.cfg
+        if rc != 0:
+            raise AssertionError(f"cli: exit code {rc}")
+        want = _train_path_launches(cfg, cfg.total_epochs,
+                                    cfg.total_iter_per_epoch,
+                                    val_sweeps=cfg.total_epochs,
+                                    test_models=cfg.max_models_to_save)
+        if launches != want or want != 3360:
+            raise AssertionError(f"cli: bn_act launched {launches} times, "
+                                 f"the path needs {want} (3360 expected)")
+        logs, models = builder.paths["logs"], builder.paths["saved_models"]
+        stats = load_statistics(logs)
+        test = load_statistics(logs, "test_summary.csv")
+        if (stats["epoch"] != ["0", "1"] or not all(
+                np.isfinite(float(v)) for col in stats.values()
+                for v in col)):
+            raise AssertionError(f"cli: summary_statistics.csv {stats}")
+        if test["num_models"] != ["2"] or test["num_episodes"] != ["48"]:
+            raise AssertionError(f"cli: test_summary.csv {test}")
+        need = {"train_model_0.ckpt", "train_model_1.ckpt",
+                "train_model_latest.ckpt", "state.json", "MANIFEST.json",
+                "REGISTRY.json"}
+        if not need <= set(os.listdir(models)):
+            raise AssertionError(f"cli: {sorted(os.listdir(models))}")
+        records = Manifest(models).records
+        if (set(records) != {"0", "1", "latest"}
+                or any(r["status"] != COMMITTED for r in records.values())
+                or not all(verify_record(models, r)["ok"]
+                           for r in records.values())):
+            raise AssertionError(f"cli: manifest {records}")
+        mgr = CheckpointManager(models, quarantine=False)
+        for tag in (0, 1, "latest"):
+            loaded, _ = mgr.load(builder.state, tag)
+            if tag == 0:
+                continue
+            held, got = _state_leaves(builder.state), _state_leaves(loaded)
+            if not all(torch.equal(held[n], got[n]) for n in held) or (
+                    loaded.step != builder.state.step):
+                raise AssertionError(f"cli: checkpoint {tag} does not "
+                                     f"reload bitwise")
+        rows = read_jsonl(os.path.join(logs, "events.jsonl"))
+        ckpt_rows = [r for r in rows if r["event"] == "checkpoint"]
+        val_ms = [round(r["seconds"] * 1e3, 1) for r in rows
+                  if r["event"] == "validation"]
+        test_ms = [r["seconds"] * 1e3 for r in rows
+                   if r["event"] == "test_protocol"][0]
+        per_epoch = {k: [round(float(v), 2) for v in stats[k]]
+                     for k in ("epoch_seconds", "meta_tasks_per_sec")}
+        print(f"cli: exit 0 in {run_s:.1f} s; epoch seconds "
+              f"{per_epoch['epoch_seconds']}, tasks/s "
+              f"{per_epoch['meta_tasks_per_sec']} (CSV; epoch 0 first order"
+              f" + MSL, epoch 1 second order); "
+              f"train loss {stats['train_loss']}, val accuracy "
+              f"{stats['val_accuracy']}; test {test['test_accuracy_mean']} "
+              f"over {test['num_episodes']} episodes, {test['num_models']} "
+              f"models; bn_act launches {launches} = {want}; cudnn "
+              f"deterministic ({card})", flush=True)
+        print(f"cli: checkpoint bytes {[r['bytes'] for r in ckpt_rows]}, "
+              f"save ms {[round(r['seconds'] * 1e3, 1) for r in ckpt_rows]};"
+              f" validation sweep ms {val_ms} (the first caches the "
+              f"episodes on the card); test protocol ms {test_ms:.1f} (2 "
+              f"models x 48 episodes) ({card})", flush=True)
+        entry["launches"] += launches
+
+        # Paused after epoch 0, then resumed: held against the run above.
+        pause_root = os.path.join(tmp, "paused")
+        rc, paused, _ = _cli_run(["--total_epochs_before_pause", "1"],
+                                 pause_root)
+        if rc != 0 or paused.current_iter != cfg.total_iter_per_epoch:
+            raise AssertionError(f"cli pause: exit {rc} at iter "
+                                 f"{paused.current_iter}")
+        del paused
+        rc, resumed, _ = _cli_run(["--continue_from_epoch", "latest"],
+                                  pause_root)
+        if rc != 0 or resumed.current_iter != builder.current_iter:
+            raise AssertionError(f"cli resume: exit {rc} at iter "
+                                 f"{resumed.current_iter}")
+        init = init_train_state(cfg, builder.model_init, seed=cfg.seed,
+                                device="cuda")
+        start = _state_leaves(init)
+        a, b = _state_leaves(builder.state), _state_leaves(resumed.state)
+        bitwise = all(torch.equal(a[n], b[n]) for n in a)
+        max_diff = max(float((a[n] - b[n]).abs().max()) for n in a)
+        cosines = {n: _cosine(a[n] - start[n], b[n] - start[n])
+                   for n in a if n.startswith("/params/")
+                   and not (n.split("/")[2].startswith("conv")
+                            and n.endswith("/b"))}
+        worst = min((v, n) for n, v in cosines.items())
+        loss_a = float(stats["train_loss"][1])
+        loss_b = float(load_statistics(resumed.paths["logs"])[
+            "train_loss"][1])
+        rel = abs(loss_a - loss_b) / abs(loss_a)
+        print(f"cli pause + resume vs uninterrupted: bitwise {bitwise}, max "
+              f"abs diff {max_diff:.3e}, worst update cosine {worst[1]} "
+              f"{worst[0]:.7f}, epoch-1 train loss {loss_b} vs {loss_a} "
+              f"(rel {rel:.2e}) ({card})", flush=True)
+        if worst[0] < RESUME_COSINE or rel > RESUME_LOSS_RTOL:
+            raise AssertionError("cli: the resumed run disagrees with the "
+                                 "uninterrupted one")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -935,6 +1145,7 @@ def main() -> int:
     entry = check_bn_act(device_name, card)
     serve_flagship(entry, card)
     train_flagship(entry, card)
+    cli_flagship(entry, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

@@ -11,6 +11,9 @@ the network's gradients (ImageNet runs); the meta-LR follows
 evaluation step count, final-step loss only, no outer gradient, and
 discards the norm-state changes.
 
+Also the checkpoint-load helpers :func:`migrate_lslr_rows`,
+:func:`state_leaf_shapes` and :func:`reconcile_loaded_shapes`.
+
 Adam is written out functionally in ``optax.adam``'s order of operations,
 its state held as ``mu``/``nu`` trees over ``{"params", "lslr"}`` plus a
 count, so the JAX package's optimizer state carries over
@@ -21,6 +24,7 @@ device.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
@@ -38,6 +42,7 @@ from howtotrainyourmamlpytorch_tpu_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
+LeafShapes = Tuple[Tuple[str, Tuple[int, ...]], ...]
 
 
 @dataclass
@@ -125,6 +130,108 @@ def init_train_state(cfg: MAMLConfig, model_init, seed: int,
         params=params, lslr=lslr, bn_state=bn_state,
         opt_state=adam_init({"params": params, "lslr": lslr}))
     return state.to(device)
+
+
+def migrate_lslr_rows(cfg: MAMLConfig,
+                      state: MetaTrainState) -> MetaTrainState:
+    """Forward-compat shim for checkpoints written before the LSLR vectors
+    adopted the reference's ``(K+1,)`` sizing (they held ``max(train,
+    eval)`` rows): pads each loaded vector with the untrained init row
+    (``task_learning_rate``) and its Adam moments with zeros, what a fresh
+    ``(K+1,)`` run holds there (no gradient reaches the final row). The
+    counterpart of the JAX package's ``meta/outer.py §
+    migrate_lslr_rows``."""
+    k = cfg.lslr_num_steps
+    leaves = tree_leaves(state.lslr)
+    if not leaves or all(leaf.shape[0] == k for leaf in leaves):
+        return state
+    if any(leaf.shape[0] != k - 1 for leaf in leaves):
+        raise ValueError(
+            f"checkpoint LSLR rows {sorted({l.shape[0] for l in leaves})} "
+            f"match neither the current sizing ({k}) nor the pre-(K+1) "
+            f"sizing ({k - 1}); refusing to guess a migration")
+
+    def pad_with(value):
+        return lambda leaf: torch.cat([leaf, leaf.new_full((1,), value)])
+
+    opt = state.opt_state
+    mu = {**opt.mu, "lslr": tree_map(pad_with(0.0), opt.mu["lslr"])}
+    nu = {**opt.nu, "lslr": tree_map(pad_with(0.0), opt.nu["lslr"])}
+    return dataclasses.replace(
+        state, lslr=tree_map(pad_with(cfg.task_learning_rate), state.lslr),
+        opt_state=AdamState(count=opt.count, mu=mu, nu=nu))
+
+
+def _state_trees(state: MetaTrainState) -> Dict[str, Any]:
+    """The state's tensor trees, named as the JAX state's fields."""
+    return {"params": state.params, "lslr": state.lslr,
+            "bn_state": state.bn_state,
+            "opt_state": {"mu": state.opt_state.mu,
+                          "nu": state.opt_state.nu}}
+
+
+def _map_paths(tree, fn, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``; paths are
+    spelled like ``jax.tree_util.keystr`` (``['params']['conv0']['w']``)
+    and visited in sorted key order."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(tree[k], fn, f"{prefix}['{k}']")
+                for k in sorted(tree)}
+    return fn(prefix, tree)
+
+
+def state_leaf_shapes(state: MetaTrainState) -> LeafShapes:
+    """``(path, shape)`` of every tensor leaf of a (template) train state —
+    capture BEFORE a load replaces the template, feed to
+    :func:`reconcile_loaded_shapes` after."""
+    out = []
+    _map_paths(_state_trees(state),
+               lambda path, t: out.append((path, tuple(t.shape))))
+    return tuple(out)
+
+
+def reconcile_loaded_shapes(cfg: MAMLConfig, state: MetaTrainState,
+                            template_shapes) -> MetaTrainState:
+    """Validate a just-loaded checkpoint's leaf shapes against the fresh
+    template's, migrating the one known historical format change: the
+    per-channel ``(1, C)`` layer-norm γ/β (and their Adam moments) are
+    broadcast over ``(H, W)`` to the elementwise ``(1, H, W, C)`` —
+    numerically what the old parameterization computed. Any other shape
+    mismatch refuses loudly. Run AFTER :func:`migrate_lslr_rows`. The
+    counterpart of the JAX package's ``meta/outer.py §
+    reconcile_loaded_shapes`` (layer norm itself is not ported yet)."""
+    have = state_leaf_shapes(state)
+    if len(have) != len(template_shapes):
+        raise ValueError(
+            f"checkpoint has {len(have)} leaves but the template state has "
+            f"{len(template_shapes)}; refusing to resume")
+    want = dict(template_shapes)
+
+    def fix(path, leaf):
+        shape, target = tuple(leaf.shape), want.get(path)
+        if target is None:
+            raise ValueError(f"checkpoint leaf {path} is not in the "
+                             f"template state; refusing to resume")
+        if shape == tuple(target):
+            return leaf
+        is_ln_affine = (cfg.norm_layer == "layer_norm"
+                        and (path.endswith("['gamma']")
+                             or path.endswith("['beta']")))
+        if (is_ln_affine and len(shape) == 2 and len(target) == 4
+                and shape[0] == target[0] == 1 and shape[1] == target[-1]):
+            return leaf[:, None, None, :].expand(tuple(target)).clone()
+        raise ValueError(
+            f"checkpoint leaf {path} has shape {shape} but the current "
+            f"model expects {tuple(target)} — an incompatible checkpoint "
+            f"format; refusing to resume with silently mismatched "
+            f"parameters")
+
+    trees = _map_paths(_state_trees(state), fix)
+    opt = AdamState(count=state.opt_state.count,
+                    mu=trees["opt_state"]["mu"], nu=trees["opt_state"]["nu"])
+    return MetaTrainState(params=trees["params"], lslr=trees["lslr"],
+                          bn_state=trees["bn_state"], opt_state=opt,
+                          step=state.step)
 
 
 class StepMetrics(NamedTuple):

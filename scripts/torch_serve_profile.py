@@ -30,12 +30,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(REPO, "experiment_config",
                         "mini-imagenet_maml++_5-way_5-shot_DA_b12.json")
 
-# Kernel-name fragments -> family, first match wins.
+# Kernel-name fragments -> family, first match wins: "pool" comes before
+# "conv", whose "nhwc"/"nchw" fragments would take max_pool_*_nhwc.
 FAMILIES = (
     ("bn_act", ("bn_act_persistent",)),
+    ("pool", ("max_pool", "pool")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad",
               "winograd", "nhwc", "nchw")),
-    ("pool", ("max_pool", "pool")),
     ("gemm", ("gemm", "cutlass", "cublas", "splitk")),
     ("reduce", ("reduce", "norm")),
 )

@@ -240,3 +240,66 @@ def test_remat_on_the_card_matches_no_remat(cuda_device, policy):
                 if float(b.norm()) > 0:
                     assert float(a @ b / (a.norm() * b.norm())) >= 0.999, (
                         top, layer, leaf)
+
+
+def _paths(tree, prefix=()):
+    """``(key path, leaf)`` over a nested dict."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _paths(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def test_builder_run_on_the_card(cuda_device, tmp_path):
+    """A tiny ExperimentBuilder run on the card through the kernel: two
+    epochs (first order + MSL, then second order), two validation sweeps
+    and a two-model ensemble test. The kernel's launches equal the count
+    derived for the path, and the latest checkpoint reloads bitwise into
+    the state the builder holds."""
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import (
+        ExperimentBuilder)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+    cfg = MAMLConfig(experiment_name="card", experiment_root=str(tmp_path),
+                     dataset_name="synthetic", image_height=12,
+                     image_width=12, image_channels=3,
+                     num_classes_per_set=3, num_samples_per_class=2,
+                     num_target_samples=2, cnn_num_filters=8, num_stages=2,
+                     number_of_training_steps_per_iter=2,
+                     number_of_evaluation_steps_per_iter=2, batch_size=4,
+                     task_microbatches=2, bn_backend="pallas",
+                     bn_fast_math=True, total_epochs=2,
+                     total_iter_per_epoch=2,
+                     first_order_to_second_order_epoch=0,
+                     multi_step_loss_num_epochs=1, num_evaluation_tasks=8,
+                     max_models_to_save=2)
+    builder = ExperimentBuilder(cfg)
+    assert builder.device.type == "cuda"
+    bn_act.reset_launches()
+    result = builder.run_experiment()
+    torch.cuda.synchronize()
+    s, k = cfg.num_stages, cfg.number_of_training_steps_per_iter
+    micro = cfg.effective_task_microbatches()
+    train = 2 * micro * s * (k + k * 2) + 2 * micro * s * (k + 1 * 2)
+    eval_batches = -(-cfg.num_evaluation_tasks
+                     // cfg.effective_eval_batch_size)
+    per_eval = eval_batches * s * (cfg.number_of_evaluation_steps_per_iter
+                                   + 1)
+    assert bn_act.launches == train + 2 * per_eval + 2 * per_eval
+    assert result["num_models"] == 2 and result["num_episodes"] == 8
+    reloaded, _ = CheckpointManager(builder.paths["saved_models"]).load(
+        builder.state, "latest")
+
+    def named(state):
+        trees = {"params": state.params, "lslr": state.lslr,
+                 "bn_state": state.bn_state, "mu": state.opt_state.mu,
+                 "nu": state.opt_state.nu}
+        return {(top, *path): t for top, tree in trees.items()
+                for path, t in _paths(tree)}
+    held, got = named(builder.state), named(reloaded)
+    assert held.keys() == got.keys()
+    for name, t in held.items():
+        assert got[name].device == t.device and torch.equal(got[name], t), (
+            name)
+    assert reloaded.step == builder.state.step == 4

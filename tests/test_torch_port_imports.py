@@ -3,8 +3,9 @@
 * Every module of ``howtotrainyourmamlpytorch_tpu_torch`` imports in a
   process where ``jax`` cannot be imported.
 * No module of the port, nor ``chip_smoke.py``, imports ``jax``, ``flax``,
-  ``optax`` or the JAX package — compared on the exact top-level module
-  name, since the port's own name begins with the JAX package's.
+  ``optax``, ``msgpack`` or the JAX package — compared on the exact
+  top-level module name, since the port's own name begins with the JAX
+  package's.
 * The port's own copy of ``MAMLConfig`` resolves every shipped experiment
   JSON to the same values as the JAX package's, field by field.
 """
@@ -23,7 +24,8 @@ from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "howtotrainyourmamlpytorch_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "howtotrainyourmamlpytorch_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack",
+             "howtotrainyourmamlpytorch_tpu"}
 
 PORT_FILES = sorted(
     os.path.relpath(p, REPO)
@@ -52,7 +54,7 @@ def test_no_jax_or_jax_package_import(relpath):
 def test_every_port_module_imports_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack',\n"
         "             'howtotrainyourmamlpytorch_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import howtotrainyourmamlpytorch_tpu_torch as p\n"
@@ -64,7 +66,7 @@ def test_every_port_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 30
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -300,3 +300,28 @@ def test_fingerprint_and_lru(serve_mods):
     lru.put("c", 3)
     assert lru.get("b") is None
     assert (lru.hits, lru.misses, lru.evictions) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("name, family", [
+    ("void at::native::(anonymous namespace)::max_pool_forward_nhwc<float>",
+     "pool"),
+    ("max_pool_backward_nhwc", "pool"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16_nhwc", "conv"),
+    ("nchwToNhwcKernel", "conv"),
+    ("bn_act_persistent", "bn_act"),
+    ("ampere_sgemm_32x32_sliced1x4_tn", "gemm"),
+    ("reduce_kernel<512, 1>", "reduce"),
+    ("vectorized_elementwise_kernel", "elementwise/other")])
+def test_profile_families(name, family):
+    """The profile script's kernel families, first match wins: max-pool
+    kernels (whose names also hold "nhwc", a conv fragment) count as
+    pool."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "torch_serve_profile.py")
+    spec = importlib.util.spec_from_file_location("torch_serve_profile",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.family(name) == family
