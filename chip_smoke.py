@@ -15,14 +15,19 @@ failure:
    channels) and at ragged shapes: forward outputs, statistics, and
    gradients of the autograd.Function against autograd of the plain
    version; forward outputs and statistics at the eval step's four stages
-   (24 tasks: 1152 channels); forward outputs at one row, fewer rows than SMs,
-   rows not a multiple of the SM count and an unaligned view; two
+   (24 tasks: 1152 channels); the same at ResNet-12's shapes and slopes
+   (0.1 and 1.0): gradients too at its training shapes (one task:
+   64/160/320/640 channels at 84/42/21/10), forward outputs and statistics
+   at its eval (16 tasks) and serving (8 tasks) shapes; forward outputs
+   at one row, fewer rows than SMs, rows not a multiple of the SM count
+   and an unaligned view; two
    launches on the same x bitwise equal. Time kernel, plain version and
    the library yardstick (``F.batch_norm(training=True)`` + ``relu_``,
-   timed only, never called by the port) after warm-up: wall (CUDA
-   events around one call, median) and device (the profiler's kernel
-   time per call, which must be one kernel for the BN kernel), at the
-   serving, training and eval shapes.
+   ``leaky_relu_`` or nothing, by slope; timed only, never called by the
+   port) after warm-up: wall (CUDA events around one call, median) and
+   device (the profiler's kernel time per call, which must be one kernel
+   for the BN kernel), at the serving, training and eval shapes of both
+   conv backbones.
 3. Serve at the flagship's full width through ``ServingEngine``
    (experiment_config/mini-imagenet_maml++_5-way_5-shot_DA_b12.json with
    bn_backend='pallas', seeded random weights): 16 uint8 requests plus a
@@ -64,6 +69,18 @@ failure:
    expected to be bitwise the uninterrupted one; it is held by per-leaf
    update cosines (``RESUME_COSINE``) and the epoch-1 train loss
    (``RESUME_LOSS_RTOL``), and whether it is bitwise is printed.
+6. The other backbones at full width (``other_backbones``): the CLI on
+   the ResNet-12 pod JSON mapped onto one card and cut in length
+   (``R12_CLI_ARGS``: 1 epoch x 3 iterations of 8 tasks, 32 evaluation
+   tasks, the top checkpoint), with exactly the BN-kernel launches derived
+   for that path (6144) and the checks of phase 5; on its state, timed and
+   profiled second-order steps and eval batches, one second-order
+   meta-gradient kernel vs plain (f32 held to ``R12_F32_FLOORS``, bf16 and
+   the bf16-vs-f32 control read), 8 requests through ``ServingEngine``
+   (launches held, logits kernel vs plain held to ``R12_SERVE_COSINE``
+   beside the f32 control); then the sinusoid JSON (the MLP, regression:
+   a finite ``test_mse_mean``) and the omniglot JSON with layer norm
+   through the CLI, each launching the BN kernel 0 times.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -121,6 +138,40 @@ CLI_ARGS = ["--bn_backend", "pallas", "--total_epochs", "2",
 RESUME_COSINE = 0.999
 RESUME_LOSS_RTOL = 1e-3
 
+# ResNet-12 (the tiered-ImageNet pod JSON): blocks of widths 64/160/320/640
+# at 84/42/21/10, 25 images per task, every BN at slope 0.1 (the first two
+# norms of a block) or 1.0 (the third and the skip's). Its BN kernel
+# shapes: one task per microbatch in training, 16 tasks at once in eval,
+# 8 in serving.
+RESNET12 = os.path.join(REPO, "experiment_config",
+                        "tiered-imagenet_maml++_5-way_5-shot_resnet12_pod.json")
+SINUSOID = os.path.join(REPO, "experiment_config", "sinusoid_maml_5-shot.json")
+OMNIGLOT = os.path.join(REPO, "experiment_config",
+                        "omniglot_maml++_5-way_1-shot.json")
+R12_BLOCKS = ((84, 64), (42, 160), (21, 320), (10, 640))
+R12_SLOPES = (0.1, 1.0)
+R12_EVAL_TASKS = 16
+R12_TRAIN_SHAPES = [(SHOTS * hw * hw, c) for hw, c in R12_BLOCKS]
+R12_EVAL_SHAPES = [(SHOTS * hw * hw, R12_EVAL_TASKS * c)
+                   for hw, c in R12_BLOCKS]
+R12_SERVE_SHAPES = [(SHOTS * hw * hw, TASKS * c) for hw, c in R12_BLOCKS]
+# Phase 6: overrides of the pod JSON that only map the pod onto one card
+# (each chip's share of the pod's 256 tasks in 8 microbatches is 8 tasks,
+# one per chunk) and cut the run's length; the BN-kernel launches that
+# run makes (derived in _train_path_launches).
+R12_CLI_ARGS = ["--bn_backend", "pallas", "--mesh_shape", "1", "1",
+                "--require_mesh", "0", "--cluster_collective_timeout_s", "0",
+                "--batch_size", "8", "--task_microbatches", "8",
+                "--total_epochs", "1", "--total_iter_per_epoch", "3",
+                "--num_evaluation_tasks", "32", "--max_models_to_save", "1"]
+R12_CLI_LAUNCHES = 6144
+SINUSOID_ARGS = ["--total_epochs", "1", "--total_iter_per_epoch", "20",
+                 "--num_evaluation_tasks", "48"]
+LAYER_NORM_ARGS = ["--norm_layer", "layer_norm", "--bn_backend", "composite",
+                   "--total_epochs", "1", "--total_iter_per_epoch", "3",
+                   "--num_evaluation_tasks", "32", "--max_models_to_save",
+                   "1"]
+
 
 def _card_line() -> str:
     out = subprocess.run(
@@ -155,6 +206,19 @@ def _median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def _device_events(prof):
+    """``[(name, ms)]`` of the device activity (kernels, copies, sets) a
+    finished profiler window recorded, read from its raw records: the
+    events ``prof.events()`` would list as CUDA, without building its
+    Python event tree (over a minute for a ResNet-12 step's ~1M host
+    ops)."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def _device_ms(fn, iters: int = 20, attempts: int = 3):
     """Device time of one call: the profiler's kernel durations summed over
     ``iters`` calls, per call, and the device kernels per call; (None, None)
@@ -163,7 +227,6 @@ def _device_ms(fn, iters: int = 20, attempts: int = 3):
     records (the tracer can drop some) and is measured again, up to
     ``attempts`` windows."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -173,14 +236,12 @@ def _device_ms(fn, iters: int = 20, attempts: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
+        kernels = _device_events(prof)
         if kernels and len(kernels) % iters == 0:
             break
     if not kernels:
         return None, None
-    us = sum(e.time_range.elapsed_us() for e in kernels)
-    return us / 1e3 / iters, len(kernels) / iters
+    return sum(ms for _, ms in kernels) / iters, len(kernels) / iters
 
 
 def _close(name: str, got, want, rtol: float, atol: float) -> float:
@@ -264,9 +325,12 @@ def check_bn_act(device_name: str, card: str) -> dict:
     bw = _bandwidth(device_name)
     max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
     stages = []
-    for r, p in SHAPES + TRAIN_SHAPES + list(RAGGED):
+    grad_cases = ([(sh, (0.0, 0.1, 1.0))
+                   for sh in SHAPES + TRAIN_SHAPES + list(RAGGED)]
+                  + [(sh, R12_SLOPES) for sh in R12_TRAIN_SHAPES])
+    for (r, p), slopes in grad_cases:
         for dtype in (torch.bfloat16, torch.float32):
-            for slope in (0.0, 0.1, 1.0):
+            for slope in slopes:
                 x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
                      + 0.3).to(dtype)
                 gamma = torch.rand(p, device="cuda", generator=gen) + 0.5
@@ -322,12 +386,17 @@ def check_bn_act(device_name: str, card: str) -> dict:
                                       ref[3:]):
                     scale = float(b.abs().max().item()) or 1.0
                     _close(f"{tag} {name}", a, b, grtol, grtol * scale)
-    n_shapes = len(SHAPES) + len(TRAIN_SHAPES) + len(RAGGED)
-    print(f"bn_act checks passed: {n_shapes} shapes x 2 dtypes x 3 slopes "
-          f"(forward, statistics, gradients), forward max abs err bf16 "
+    n_cases = 2 * sum(len(slopes) for _, slopes in grad_cases)
+    print(f"bn_act checks passed: {len(grad_cases)} shapes, {n_cases} "
+          f"(shape, dtype, slope) cases (forward, statistics, gradients; "
+          f"ResNet-12's training shapes {R12_TRAIN_SHAPES} at slopes "
+          f"{R12_SLOPES}), forward max abs err bf16 "
           f"{max_err[torch.bfloat16]:.3e}, f32 {max_err[torch.float32]:.3e}",
           flush=True)
-    for r, p in EVAL_SHAPES:
+    fwd_cases = ([(sh, (0.0, 0.1, 1.0)) for sh in EVAL_SHAPES]
+                 + [(sh, R12_SLOPES)
+                    for sh in R12_EVAL_SHAPES + R12_SERVE_SHAPES])
+    for (r, p), slopes in fwd_cases:
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
                  + 0.3).to(dtype)
@@ -335,7 +404,7 @@ def check_bn_act(device_name: str, card: str) -> dict:
             beta = torch.randn(p, device="cuda", generator=gen) * 0.1
             rtol, atol = ((1.6e-2, 1e-2) if dtype == torch.bfloat16
                           else (1e-4, 1e-5))
-            for slope in (0.0, 0.1, 1.0):
+            for slope in slopes:
                 tag = f"bn_act {(r, p)} {dtype} slope={slope}"
                 with torch.no_grad():
                     k = bn_act.bn_act(x, gamma, beta, 1e-5, slope)
@@ -348,36 +417,53 @@ def check_bn_act(device_name: str, card: str) -> dict:
                 del k, ref
             del x
     torch.cuda.empty_cache()
-    print(f"bn_act eval-shape checks passed: {len(EVAL_SHAPES)} shapes "
-          f"{EVAL_SHAPES} x 2 dtypes x 3 slopes (forward, statistics)",
+    print(f"bn_act eval/serving-shape checks passed (forward, "
+          f"statistics): VGG eval {EVAL_SHAPES} x 2 dtypes x 3 slopes; "
+          f"ResNet-12 eval {R12_EVAL_SHAPES} and serving "
+          f"{R12_SERVE_SHAPES} x 2 dtypes x slopes {R12_SLOPES}",
           flush=True)
     _small_shapes_and_determinism(gen)
 
-    # Timing at the serving dtype (bf16) and activation (relu). Wall: one
-    # call between CUDA events (host launch cost included where the device
-    # waits on it). Device: the profiler's kernel time per call.
-    paths = ([("serve", sh) for sh in SHAPES]
-             + [("train", sh) for sh in TRAIN_SHAPES]
-             + [("eval", sh) for sh in EVAL_SHAPES])
-    for path, (r, p) in paths:
+    # Timing. VGG rows at the serving dtype (bf16) and activation (relu);
+    # ResNet-12 rows in bf16 at both its slopes, and its widest eval stage
+    # in f32 too (2560 16-byte groups per row: the normalize pass stages
+    # fewest rows per piece there). Wall: one call between CUDA events
+    # (host launch cost included where the device waits on it). Device:
+    # the profiler's kernel time per call. Yardstick: F.batch_norm, then
+    # relu_ (slope 0), leaky_relu_ (0.1) or nothing (1.0).
+    bf16 = torch.bfloat16
+    rows = ([("vgg", "serve", sh, 0.0, bf16) for sh in SHAPES]
+            + [("vgg", "train", sh, 0.0, bf16) for sh in TRAIN_SHAPES]
+            + [("vgg", "eval", sh, 0.0, bf16) for sh in EVAL_SHAPES]
+            + [("resnet12", path, sh, slope, bf16)
+               for path, shapes in (("train", R12_TRAIN_SHAPES),
+                                    ("eval", R12_EVAL_SHAPES),
+                                    ("serve", R12_SERVE_SHAPES))
+               for sh in shapes for slope in R12_SLOPES]
+            + [("resnet12", "eval", R12_EVAL_SHAPES[-1], 0.1,
+                torch.float32)])
+    for model, path, (r, p), slope, dtype in rows:
         x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
-             + 0.3).to(torch.bfloat16)
+             + 0.3).to(dtype)
         gamma = torch.rand(p, device="cuda", generator=gen) + 0.5
         beta = torch.randn(p, device="cuda", generator=gen) * 0.1
         hw = int(round((r // SHOTS) ** 0.5))
         x4 = x.view(SHOTS, hw, hw, p).permute(0, 3, 1, 2)  # channels_last
 
         def kernel():
-            return bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+            return bn_act.bn_act(x, gamma, beta, 1e-5, slope)
 
         def library():
-            return F.batch_norm(x4, None, None, gamma, beta, training=True,
-                                eps=1e-5).relu_()
+            y = F.batch_norm(x4, None, None, gamma, beta, training=True,
+                             eps=1e-5)
+            if slope == 0.0:
+                return y.relu_()
+            return y if slope == 1.0 else F.leaky_relu_(y, slope)
 
         with torch.no_grad():
             ms = _median_ms(kernel)
             plain_ms = _median_ms(lambda: bn_act.bn_act(
-                x, gamma, beta, 1e-5, 0.0, plain=True))
+                x, gamma, beta, 1e-5, slope, plain=True))
             lib_ms = _median_ms(library)
             dev_ms, per_call = _device_ms(kernel)
             lib_dev_ms, lib_per_call = _device_ms(library)
@@ -387,7 +473,9 @@ def check_bn_act(device_name: str, card: str) -> dict:
         nbytes = 2 * r * p * x.element_size() + 4 * p * 4
         flops = 8 * r * p   # stats 3/elem, normalize+act 5/elem
         bound_s = max(nbytes / bw, flops / F32_FLOP_PER_S)
-        stages.append({"path": path, "shape": [r, p], "ms": ms,
+        dname = "bf16" if dtype == bf16 else "f32"
+        stages.append({"model": model, "path": path, "shape": [r, p],
+                       "slope": slope, "dtype": dname, "ms": ms,
                        "device_ms": dev_ms,
                        "kernels_per_call": per_call,
                        "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -397,12 +485,12 @@ def check_bn_act(device_name: str, card: str) -> dict:
                        "bound_by": ("bytes" if nbytes / bw
                                     >= flops / F32_FLOP_PER_S
                                     else "operations")})
-        print(f"bn_act {path} {r}x{p} bf16 relu: kernel wall {ms:.4f} ms, "
-              f"device {dev_ms} ms ({per_call} kernels/call); plain "
-              f"{plain_ms:.4f} "
-              f"ms; F.batch_norm+relu_ wall {lib_ms:.4f} ms, device "
-              f"{lib_dev_ms} ms ({lib_per_call} kernels/call); bound "
-              f"{bound_s * 1e3:.4f} ms ({card})", flush=True)
+        print(f"bn_act {model} {path} {r}x{p} {dname} slope={slope}: "
+              f"kernel wall {ms:.4f} ms, device {dev_ms} ms ({per_call} "
+              f"kernels/call); plain {plain_ms:.4f} ms; library wall "
+              f"{lib_ms:.4f} ms, device {lib_dev_ms} ms ({lib_per_call} "
+              f"kernels/call); bound {bound_s * 1e3:.4f} ms ({card})",
+              flush=True)
         del x, x4
     torch.cuda.empty_cache()
     top = stages[0]
@@ -636,11 +724,41 @@ def _family_of():
     return mod.family
 
 
+def _profiled(label: str, fn, card: str) -> dict:
+    """Run ``fn`` once under the profiler: wall (synchronized), device
+    time by ``scripts/torch_serve_profile.py``'s kernel families, idle
+    share; printed and returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    family = _family_of()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam_ms, fam_n = {}, {}  # ms and kernels per family
+    for name, ms in _device_events(prof):
+        f = family(name)
+        fam_ms[f] = fam_ms.get(f, 0.0) + ms
+        fam_n[f] = fam_n.get(f, 0) + 1
+    device_ms = sum(fam_ms.values())
+    by_family = {f: [round(v, 3), fam_n[f]]
+                 for f, v in sorted(fam_ms.items(), key=lambda kv: -kv[1])}
+    idle = max(0.0, 1 - device_ms / wall_ms)
+    print(f"{label}: wall {wall_ms:.1f} ms under the profiler, device "
+          f"{device_ms:.1f} ms, idle share {idle:.3f}; by family (ms, "
+          f"kernels) {json.dumps(by_family)} ({card})", flush=True)
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "idle": idle,
+            "by_family": by_family}
+
+
 def _dead_bias(name: str) -> bool:
-    """Conv biases sit before a batch-statistics BN: their meta-gradient,
-    and their LSLR vectors', is analytically zero and holds noise only
+    """Conv biases sit before a batch-statistics BN (every conv of the VGG
+    and of ResNet-12, skips included): their meta-gradient, and their
+    LSLR vectors', is analytically zero and holds noise only
     (docs/PARITY.md, the dead-bias degeneracy)."""
-    return name.split("/")[1].startswith("conv") and name.endswith("/b")
+    return "conv" in name.split("/")[1] and name.endswith("/b")
 
 
 def _compare_meta_gradients(label: str, a, b, floors, card: str):
@@ -683,8 +801,6 @@ def train_flagship(entry: dict, card: str) -> None:
     points; adds the BN kernel's training launches to ``entry``."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
     from howtotrainyourmamlpytorch_tpu_torch.data import (
         MetaLearningDataLoader)
@@ -880,30 +996,11 @@ def train_flagship(entry: dict, card: str) -> None:
                                             grads[b], floors, card)
 
     # One profiled second-order step, split by kernel family.
-    family = _family_of()
     so_step = dict(second_order=True, use_msl=False)
     train_step(state, spare, 41, **so_step)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(state, spare, 41, **so_step)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    fam_ms, fam_n = {}, {}  # ms and kernels per family
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        f = family(evt.name)
-        fam_ms[f] = fam_ms.get(f, 0.0) + evt.time_range.elapsed_us() / 1e3
-        fam_n[f] = fam_n.get(f, 0) + 1
-    device_ms = sum(fam_ms.values())
-    by_family = {f: [round(v, 3), fam_n[f]]
-                 for f, v in sorted(fam_ms.items(), key=lambda kv: -kv[1])}
-    print(f"train profile, one second-order step: wall {wall_ms:.1f} ms "
-          f"under the profiler, device {device_ms:.1f} ms, idle share "
-          f"{max(0.0, 1 - device_ms / wall_ms):.3f}; by family (ms, "
-          f"kernels) {json.dumps(by_family)} ({card})", flush=True)
+    _profiled("train profile, one second-order step",
+              lambda: train_step(state, spare, 41, **so_step), card)
 
     # Remat: one second-order step, timed and its peak memory, per
     # variant, in turns.
@@ -931,13 +1028,26 @@ def train_flagship(entry: dict, card: str) -> None:
                              + "; ".join(failures))
 
 
+def _bn_per_forward(cfg) -> int:
+    """BN-kernel launches of one forward: one per batch-norm layer on
+    ``bn_backend='pallas'`` (the VGG's ``num_stages``, ResNet-12's 4
+    blocks x (3 + the skip's)); none on the composite BN, layer norm or
+    the MLP."""
+    from howtotrainyourmamlpytorch_tpu_torch.models.resnet12 import (
+        NORMS_PER_FORWARD)
+    if cfg.bn_backend != "pallas" or cfg.backbone == "mlp":
+        return 0
+    return NORMS_PER_FORWARD if cfg.backbone == "resnet12" else (
+        cfg.num_stages)
+
+
 def _train_path_launches(cfg, epochs, iters, val_sweeps,
                          test_models) -> int:
     """BN-kernel launches a builder run makes: per train step, microbatches
-    x stages x (K support + targets x remat) forwards; per eval batch,
-    stages x (eval steps + 1); the batches of a sweep pad the evaluation
-    tasks up to a full last batch."""
-    s, k = cfg.num_stages, cfg.number_of_training_steps_per_iter
+    x BN layers x (K support + targets x remat) forwards; per eval batch,
+    BN layers x (eval steps + 1); the batches of a sweep pad the
+    evaluation tasks up to a full last batch."""
+    s, k = _bn_per_forward(cfg), cfg.number_of_training_steps_per_iter
     remat = 2 if (cfg.remat_inner_steps
                   and cfg.remat_policy == "block_outs") else 1
     micro = cfg.effective_task_microbatches()
@@ -965,17 +1075,84 @@ def _state_leaves(state) -> dict:
     return out
 
 
-def _cli_run(argv, root):
-    """One in-process CLI run; returns (exit code, builder, seconds)."""
+def _cli_run(argv, root, config=FLAGSHIP, base_args=CLI_ARGS):
+    """One in-process CLI run of ``config`` with ``base_args + argv``;
+    returns (exit code, builder, seconds)."""
     import torch
     from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
     builders = []
     t0 = time.perf_counter()
     rc = train_maml_system.main(
-        ["--name_of_args_json_file", FLAGSHIP, "--experiment_root", root]
-        + CLI_ARGS + argv, builders=builders)
+        ["--name_of_args_json_file", config, "--experiment_root", root]
+        + base_args + argv, builders=builders)
     torch.cuda.synchronize()
     return rc, builders[0], time.perf_counter() - t0
+
+
+def _verify_run(tag: str, builder, n_epochs: int, n_models: int,
+                n_episodes: int):
+    """What a finished builder run leaves, checked: one finite CSV row per
+    epoch, a finite ``test_summary.csv`` of ``n_models`` over
+    ``n_episodes``, every epoch's checkpoint and ``latest`` (committed
+    manifest records whose CRCs verify), ``state.json``, ``REGISTRY.json``
+    when the run publishes, and checkpoints that load back, the last
+    epoch's and ``latest`` bitwise into the state the builder holds.
+    Returns the two CSVs and the events' timings."""
+    import numpy as np
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.ckpt.manifest import (
+        COMMITTED, Manifest, verify_record)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import (
+        LATEST, CheckpointManager)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
+        load_statistics)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
+
+    logs, models = builder.paths["logs"], builder.paths["saved_models"]
+    stats = load_statistics(logs)
+    test = load_statistics(logs, "test_summary.csv")
+    epochs = [str(e) for e in range(n_epochs)]
+    if stats["epoch"] != epochs or not all(
+            np.isfinite(float(v)) for col in stats.values() for v in col):
+        raise AssertionError(f"{tag}: summary_statistics.csv {stats}")
+    if (test["num_models"] != [str(n_models)]
+            or test["num_episodes"] != [str(n_episodes)]
+            or not all(np.isfinite(float(v)) for k, col in test.items()
+                       if k != "per_model_accuracy" for v in col)):
+        raise AssertionError(f"{tag}: test_summary.csv {test}")
+    tags = epochs + [LATEST]
+    need = ({f"train_model_{t}.ckpt" for t in tags}
+            | {"state.json", "MANIFEST.json"}
+            | ({"REGISTRY.json"} if builder.cfg.ckpt_publish else set()))
+    if not need <= set(os.listdir(models)):
+        raise AssertionError(f"{tag}: {sorted(os.listdir(models))}")
+    records = Manifest(models).records
+    if (set(records) != set(tags)
+            or any(r["status"] != COMMITTED for r in records.values())
+            or not all(verify_record(models, r)["ok"]
+                       for r in records.values())):
+        raise AssertionError(f"{tag}: manifest {records}")
+    mgr = CheckpointManager(models, quarantine=False)
+    for t in tags:
+        loaded, _ = mgr.load(builder.state, t if t == LATEST else int(t))
+        if t not in (epochs[-1], LATEST):
+            continue
+        held, got = _state_leaves(builder.state), _state_leaves(loaded)
+        if not all(torch.equal(held[n], got[n]) for n in held) or (
+                loaded.step != builder.state.step):
+            raise AssertionError(f"{tag}: checkpoint {t} does not reload "
+                                 f"bitwise")
+    rows = read_jsonl(os.path.join(logs, "events.jsonl"))
+    events = {
+        "checkpoint_bytes": [r["bytes"] for r in rows
+                             if r["event"] == "checkpoint"],
+        "save_ms": [round(r["seconds"] * 1e3, 1) for r in rows
+                    if r["event"] == "checkpoint"],
+        "val_ms": [round(r["seconds"] * 1e3, 1) for r in rows
+                   if r["event"] == "validation"],
+        "test_ms": [round(r["seconds"] * 1e3, 1) for r in rows
+                    if r["event"] == "test_protocol"]}
+    return stats, test, events
 
 
 def cli_flagship(entry: dict, card: str) -> None:
@@ -983,18 +1160,12 @@ def cli_flagship(entry: dict, card: str) -> None:
     launches over the uninterrupted run to ``entry``."""
     import shutil
     import tempfile
-    import numpy as np
     import torch
-    from howtotrainyourmamlpytorch_tpu_torch.ckpt.manifest import (
-        COMMITTED, Manifest, verify_record)
     from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
         init_train_state)
     from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
-    from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import (
-        CheckpointManager)
     from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
         load_statistics)
-    from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
 
     saved = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
@@ -1017,42 +1188,7 @@ def cli_flagship(entry: dict, card: str) -> None:
         if launches != want or want != 3360:
             raise AssertionError(f"cli: bn_act launched {launches} times, "
                                  f"the path needs {want} (3360 expected)")
-        logs, models = builder.paths["logs"], builder.paths["saved_models"]
-        stats = load_statistics(logs)
-        test = load_statistics(logs, "test_summary.csv")
-        if (stats["epoch"] != ["0", "1"] or not all(
-                np.isfinite(float(v)) for col in stats.values()
-                for v in col)):
-            raise AssertionError(f"cli: summary_statistics.csv {stats}")
-        if test["num_models"] != ["2"] or test["num_episodes"] != ["48"]:
-            raise AssertionError(f"cli: test_summary.csv {test}")
-        need = {"train_model_0.ckpt", "train_model_1.ckpt",
-                "train_model_latest.ckpt", "state.json", "MANIFEST.json",
-                "REGISTRY.json"}
-        if not need <= set(os.listdir(models)):
-            raise AssertionError(f"cli: {sorted(os.listdir(models))}")
-        records = Manifest(models).records
-        if (set(records) != {"0", "1", "latest"}
-                or any(r["status"] != COMMITTED for r in records.values())
-                or not all(verify_record(models, r)["ok"]
-                           for r in records.values())):
-            raise AssertionError(f"cli: manifest {records}")
-        mgr = CheckpointManager(models, quarantine=False)
-        for tag in (0, 1, "latest"):
-            loaded, _ = mgr.load(builder.state, tag)
-            if tag == 0:
-                continue
-            held, got = _state_leaves(builder.state), _state_leaves(loaded)
-            if not all(torch.equal(held[n], got[n]) for n in held) or (
-                    loaded.step != builder.state.step):
-                raise AssertionError(f"cli: checkpoint {tag} does not "
-                                     f"reload bitwise")
-        rows = read_jsonl(os.path.join(logs, "events.jsonl"))
-        ckpt_rows = [r for r in rows if r["event"] == "checkpoint"]
-        val_ms = [round(r["seconds"] * 1e3, 1) for r in rows
-                  if r["event"] == "validation"]
-        test_ms = [r["seconds"] * 1e3 for r in rows
-                   if r["event"] == "test_protocol"][0]
+        stats, test, events = _verify_run("cli", builder, 2, 2, 48)
         per_epoch = {k: [round(float(v), 2) for v in stats[k]]
                      for k in ("epoch_seconds", "meta_tasks_per_sec")}
         print(f"cli: exit 0 in {run_s:.1f} s; epoch seconds "
@@ -1064,11 +1200,11 @@ def cli_flagship(entry: dict, card: str) -> None:
               f"over {test['num_episodes']} episodes, {test['num_models']} "
               f"models; bn_act launches {launches} = {want}; cudnn "
               f"deterministic ({card})", flush=True)
-        print(f"cli: checkpoint bytes {[r['bytes'] for r in ckpt_rows]}, "
-              f"save ms {[round(r['seconds'] * 1e3, 1) for r in ckpt_rows]};"
-              f" validation sweep ms {val_ms} (the first caches the "
-              f"episodes on the card); test protocol ms {test_ms:.1f} (2 "
-              f"models x 48 episodes) ({card})", flush=True)
+        print(f"cli: checkpoint bytes {events['checkpoint_bytes']}, save ms "
+              f"{events['save_ms']}; validation sweep ms {events['val_ms']} "
+              f"(the first caches the episodes on the card); test protocol "
+              f"ms {events['test_ms']} (2 models x 48 episodes) ({card})",
+              flush=True)
         entry["launches"] += launches
 
         # Paused after epoch 0, then resumed: held against the run above.
@@ -1113,6 +1249,326 @@ def cli_flagship(entry: dict, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# Floors of the kernel-vs-plain f32 second-order meta-gradient through
+# ResNet-12 (loss rel, whole-vector cosine, per-leaf cosine), set from the
+# chip readings on the run's 8 tasks: f32 kernel vs plain 2.29e-4-3.63e-4
+# / 0.999310-0.999330 / 0.997724-0.998553, bf16 kernel vs plain 2.18e-2 /
+# 0.987565 / 0.806, plain bf16 vs plain f32 (the control) 6.3e-3 / 0.948
+# / 0.770 (NVIDIA H100 80GB HBM3, 700 W; PERF.md § 6).
+R12_F32_FLOORS = (2e-3, 0.998, 0.99)
+# Floor of the cosine between the kernel's and the plain version's served
+# ResNet-12 logits (bf16): read 0.999687, the control plain bf16 vs plain
+# f32 0.997132 (same card).
+R12_SERVE_COSINE = 0.999
+
+
+def _r12_serve(cfg, state, card: str):
+    """Phase 6 (d): 8 uint8 requests through ``ServingEngine`` on the
+    ResNet-12 state, launches held to the path (16 BN x K per adapt
+    batch, 16 per predict batch); then the batch again with the plain
+    version, the logits compared. Returns (launches, failures)."""
+    import numpy as np
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.serve import (
+        FewShotRequest, ServingEngine, pad_group)
+    from howtotrainyourmamlpytorch_tpu_torch.serve.adapt import (
+        adapt_task, predict_tasks)
+
+    cfg = cfg.replace(serve_default_deadline_ms=0.0)
+    engine = ServingEngine(cfg, state, device="cuda")
+    engine.warmup()
+    h, w, c = cfg.image_shape
+    n, k = cfg.num_classes_per_set, cfg.num_samples_per_class
+    q = cfg.num_target_per_task
+    rng = np.random.default_rng(cfg.seed)
+    requests = [FewShotRequest(
+        support_x=rng.integers(0, 256, (n * k, h, w, c), dtype=np.uint8),
+        support_y=np.repeat(np.arange(n, dtype=np.int32), k),
+        query_x=rng.integers(0, 256, (q, h, w, c), dtype=np.uint8))
+        for _ in range(cfg.serve_batch_tasks)]
+    torch.cuda.reset_peak_memory_stats()
+    bn_act.reset_launches()
+    t0 = time.perf_counter()
+    for req in requests:
+        engine.submit(req)
+    responses = engine.drain()
+    serve_s = time.perf_counter() - t0
+    launches = bn_act.launches
+    norms = _bn_per_forward(cfg)
+    want = (norms * engine.num_adapt_steps * engine.adapt_invocations
+            + norms * engine.predict_invocations)
+    if launches != want:
+        raise AssertionError(f"resnet12 serve: bn_act launched {launches} "
+                             f"times, the path needs {want}")
+    for resp in responses:
+        if (resp.status != "ok" or resp.logits.shape != (q, n)
+                or not np.isfinite(resp.logits).all()):
+            raise AssertionError(f"resnet12 serve: request "
+                                 f"{resp.request_id} {resp.status} "
+                                 f"{resp.error}")
+    print(f"resnet12 serve: {len(requests)} requests in {serve_s:.3f} s; "
+          f"adapt {statistics.median(engine.adapt_seconds) * 1e3:.2f} ms, "
+          f"predict {statistics.median(engine.predict_seconds) * 1e3:.2f} "
+          f"ms per batch; bn_act launches {launches} = {norms} x "
+          f"{engine.num_adapt_steps} x {engine.adapt_invocations} + {norms}"
+          f" x {engine.predict_invocations}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})",
+          flush=True)
+    batch = pad_group(requests, engine.batcher.buckets[0],
+                      cfg.serve_batch_tasks, cfg.image_shape)
+    dev = torch.device("cuda")
+    sx = torch.from_numpy(batch["support_x"]).to(dev)
+    sy = torch.from_numpy(batch["support_y"]).to(dev, torch.long)
+    sw = torch.from_numpy(batch["support_w"]).to(dev)
+    qx = torch.from_numpy(batch["query_x"]).to(dev)
+    st = engine.state
+    cfg32 = cfg.replace(compute_dtype="float32")
+    _, apply32 = make_model(cfg32)
+    logits = {}
+    # The kernel and its plain version in bf16, and the control: the
+    # plain version in f32 (what bf16 precision itself costs).
+    for name, vcfg, vapply, plain in (
+            ("kernel", cfg, engine.model_apply, False),
+            ("plain", cfg, engine.model_apply, True),
+            ("plain f32", cfg32, apply32, True)):
+        ad = adapt_task(vcfg, vapply, st.params, st.lslr, st.bn_state, sx,
+                        sy, sw, num_steps=engine.num_adapt_steps,
+                        plain=plain)
+        logits[name] = predict_tasks(vcfg, vapply, st.params, ad.fast,
+                                     ad.bn_state, qx,
+                                     num_steps=engine.num_adapt_steps,
+                                     plain=plain)
+    served = torch.from_numpy(np.stack([r.logits for r in sorted(
+        responses, key=lambda r: r.request_id)]))
+    print(f"resnet12 serve: engine vs rerun max abs diff "
+          f"{(served - logits['kernel'].cpu()).abs().max().item():.3e}",
+          flush=True)
+    for a, b in (("kernel", "plain"), ("plain", "plain f32")):
+        c, flips, tie = _logits_agreement(logits[a], logits[b])
+        print(f"resnet12 serve: {a} vs {b} logits cosine {c:.6f}; argmax "
+              f"flips {int(flips.sum())} of {flips.numel()} rows, "
+              f"{int((flips & ~tie).sum())} outside the {int(tie.sum())} "
+              f"near-tie rows ({card})", flush=True)
+    cos = _logits_agreement(logits["kernel"], logits["plain"])[0]
+    failures = []
+    if cos < R12_SERVE_COSINE:
+        failures.append(f"resnet12 serve: kernel vs plain logits cosine "
+                        f"{cos:.6f} < {R12_SERVE_COSINE}")
+    return launches, failures
+
+
+def _small_cli(tag: str, config: str, args, root: str, card: str,
+               n_episodes: int):
+    """Phase 6 (e), (f): a one-epoch CLI run of ``config`` that runs no BN
+    kernel (its launches must stay 0), checked by :func:`_verify_run`.
+    Returns its test summary."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    bn_act.reset_launches()
+    rc, builder, run_s = _cli_run(args, root, config=config, base_args=[])
+    if rc != 0 or bn_act.launches != 0:
+        raise AssertionError(f"{tag}: exit {rc}, bn_act launches "
+                             f"{bn_act.launches} (want 0)")
+    stats, test, events = _verify_run(tag, builder, 1, 1, n_episodes)
+    cfg = builder.cfg
+    print(f"{tag}: exit 0 in {run_s:.1f} s ({cfg.backbone}, norm "
+          f"{cfg.norm_layer}, bn_backend {cfg.bn_backend}, "
+          f"{cfg.batch_size} tasks/step, {cfg.compute_dtype}); epoch "
+          f"seconds {stats['epoch_seconds']}, tasks/s "
+          f"{stats['meta_tasks_per_sec']}; train loss {stats['train_loss']}"
+          f", val {stats['val_loss']}; test "
+          f"{ {k: v for k, v in test.items() if k != 'per_model_accuracy'} }"
+          f"; validation ms {events['val_ms']}, test ms {events['test_ms']};"
+          f" checkpoints reload bitwise; bn_act launches 0 ({card})",
+          flush=True)
+    return test
+
+
+def other_backbones(entry: dict, card: str) -> None:
+    """Phase 6: the other backbones at full width. (a) The CLI on the
+    ResNet-12 pod JSON mapped onto one card (``R12_CLI_ARGS``), with
+    exactly the derived BN-kernel launches; (c) on its state, timed and
+    profiled second-order steps and eval batches; (b) the kernel against
+    its plain version in one f32 second-order meta-gradient, beside the
+    bf16-vs-f32 control; (d) serving; (e) the sinusoid JSON (MLP,
+    regression) and (f) the omniglot JSON with layer norm through the
+    CLI. Adds the launches of (a), (c), (d) to ``entry``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.data import (
+        MetaLearningDataLoader)
+    from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
+        make_meta_gradients)
+    from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+
+    runs_dir = os.path.join(REPO, ".smoke_runs")
+    os.makedirs(runs_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="backbones_", dir=runs_dir)
+    failures = []
+    marks = [("start", time.perf_counter())]
+    try:
+        # (a) the CLI on the pod JSON.
+        bn_act.reset_launches()
+        rc, builder, run_s = _cli_run([], os.path.join(tmp, "resnet12"),
+                                      config=RESNET12,
+                                      base_args=R12_CLI_ARGS)
+        launches = bn_act.launches
+        cfg = builder.cfg
+        if rc != 0:
+            raise AssertionError(f"resnet12 cli: exit code {rc}")
+        want = _train_path_launches(cfg, cfg.total_epochs,
+                                    cfg.total_iter_per_epoch,
+                                    val_sweeps=cfg.total_epochs,
+                                    test_models=cfg.max_models_to_save)
+        if launches != want or want != R12_CLI_LAUNCHES:
+            raise AssertionError(
+                f"resnet12 cli: bn_act launched {launches} times, the path "
+                f"needs {want} ({R12_CLI_LAUNCHES} expected)")
+        stats, test, events = _verify_run("resnet12 cli", builder, 1, 1,
+                                          cfg.num_evaluation_tasks)
+        entry["launches"] += launches
+        print(f"resnet12 cli: exit 0 in {run_s:.1f} s ({cfg.backbone} "
+              f"widths {cfg.cnn_num_filters}x(1, 2.5, 5, 10), "
+              f"{cfg.image_shape}, {cfg.batch_size} tasks/step in "
+              f"{cfg.effective_task_microbatches()} microbatches, "
+              f"second order {cfg.use_second_order(0)}, MSL "
+              f"{cfg.use_msl(0)}, {cfg.compute_dtype}, remat "
+              f"{cfg.remat_policy}); epoch seconds {stats['epoch_seconds']},"
+              f" tasks/s {stats['meta_tasks_per_sec']}; train loss "
+              f"{stats['train_loss']}, val accuracy {stats['val_accuracy']};"
+              f" test {test['test_accuracy_mean']} over "
+              f"{test['num_episodes']} episodes; validation sweep ms "
+              f"{events['val_ms']}, test protocol ms {events['test_ms']}, "
+              f"checkpoint bytes {events['checkpoint_bytes']} saved in "
+              f"{events['save_ms']} ms; bn_act launches {launches} = {want} "
+              f"({card})", flush=True)
+
+        marks.append(("a", time.perf_counter()))
+
+        # (c) steps and eval batches on the run's state, timed; one step
+        # profiled.
+        state, apply = builder.state, builder.model_apply
+        loader = MetaLearningDataLoader(cfg, device="cuda")
+        batches = loader.get_train_batches(
+            cfg.total_epochs * cfg.total_iter_per_epoch, 5)
+        phase = dict(second_order=cfg.use_second_order(0),
+                     use_msl=cfg.use_msl(0))
+        per_step = _train_path_launches(cfg, 1, 1, 0, 0)
+        torch.cuda.reset_peak_memory_stats()
+        bn_act.reset_launches()
+        times = []
+        for i in range(3):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = builder.train_step(state, batch, 0, **phase)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+            if not bool(torch.isfinite(m.loss)):
+                raise AssertionError(f"resnet12 step: loss {m.loss}")
+        if bn_act.launches != 3 * per_step:
+            raise AssertionError(f"resnet12 step: bn_act launched "
+                                 f"{bn_act.launches} times, want 3 x "
+                                 f"{per_step}")
+        entry["launches"] += bn_act.launches
+        step_ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"resnet12 train: {step_ms:.1f} ms per second-order MSL step "
+              f"(median of {times}), {cfg.batch_size / step_ms * 1e3:.2f} "
+              f"tasks/s, max_memory_allocated {peak / 2**30:.2f} GiB; "
+              f"bn_act {per_step} launches per step ({card})", flush=True)
+        batch = next(batches)
+        _profiled("resnet12 train profile, one second-order MSL step",
+                  lambda: builder.train_step(state, batch, 0, **phase), card)
+        val = loader.get_val_batches()
+        eval_batch = next(val)
+        val.close()
+        torch.cuda.reset_peak_memory_stats()
+        bn_act.reset_launches()
+        eval_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = builder.eval_step(state, eval_batch)
+            torch.cuda.synchronize()
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
+        want = 2 * _bn_per_forward(cfg) * (
+            cfg.number_of_evaluation_steps_per_iter + 1)
+        if bn_act.launches != want or not bool(
+                torch.isfinite(res.target_logits).all()):
+            raise AssertionError(f"resnet12 eval: bn_act launched "
+                                 f"{bn_act.launches} times (want {want})")
+        entry["launches"] += bn_act.launches
+        print(f"resnet12 eval: {res.loss.shape[0]} tasks in "
+              f"{eval_ms[0]:.1f} ms (first call), {eval_ms[1]:.1f} ms "
+              f"(second); accuracy {float(res.accuracy.mean()):.3f}; "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; bn_act "
+              f"launches {want} ({card})", flush=True)
+
+        marks.append(("c", time.perf_counter()))
+
+        # (b) the kernel against its plain version: one second-order
+        # meta-gradient on the run's state, f32 held, bf16 and the control
+        # (plain bf16 vs plain f32) read.
+        spare = next(batches)
+        batches.close()
+        cfg32 = cfg.replace(compute_dtype="float32")
+        _, apply32 = make_model(cfg32)
+        grads = {}
+        for name, vcfg, vapply, plain in (
+                ("kernel f32", cfg32, apply32, False),
+                ("plain f32", cfg32, apply32, True),
+                ("kernel bf16", cfg, apply, False),
+                ("plain bf16", cfg, apply, True)):
+            loss, _, _, _, g = make_meta_gradients(vcfg, vapply)(
+                state, spare, 0, second_order=True, use_msl=False,
+                plain=plain)
+            grads[name] = (float(loss), _leaf_vectors(g))
+            del g
+        for a, b, floors in (("kernel f32", "plain f32", R12_F32_FLOORS),
+                             ("kernel bf16", "plain bf16", None),
+                             ("plain bf16", "plain f32", None)):
+            failures += _compare_meta_gradients(f"resnet12 {a} vs {b}",
+                                                grads[a], grads[b], floors,
+                                                card)
+        del grads
+
+        marks.append(("b", time.perf_counter()))
+
+        # (d) serving the run's state.
+        launches, missed = _r12_serve(cfg, state, card)
+        entry["launches"] += launches
+        failures += missed
+        del builder, state
+        torch.cuda.empty_cache()
+
+        marks.append(("d", time.perf_counter()))
+
+        # (e) the sinusoid workload, (f) layer norm: the CLI, no BN kernel.
+        test = _small_cli("sinusoid cli", SINUSOID, SINUSOID_ARGS,
+                          os.path.join(tmp, "sinusoid"), card, 48)
+        mse = float(test["test_mse_mean"][0])
+        if not (np.isfinite(mse) and mse > 0):
+            raise AssertionError(f"sinusoid cli: test_mse_mean {mse}")
+        _small_cli("layer-norm cli", OMNIGLOT, LAYER_NORM_ARGS,
+                   os.path.join(tmp, "layer_norm"), card, 32)
+        marks.append(("e, f", time.perf_counter()))
+        print("phase 6 seconds per part: " + json.dumps(
+            {name: round(t - marks[i][1], 1)
+             for i, (name, t) in enumerate(marks[1:])}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 6: " + "; ".join(failures))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1142,10 +1598,17 @@ def main() -> int:
     print("tf32: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False",
           flush=True)
 
+    t1 = time.perf_counter()
     entry = check_bn_act(device_name, card)
-    serve_flagship(entry, card)
-    train_flagship(entry, card)
-    cli_flagship(entry, card)
+    seconds = {"bn_act": round(time.perf_counter() - t1, 1)}
+    for name, phase in (("serve", serve_flagship), ("train", train_flagship),
+                        ("cli", cli_flagship),
+                        ("backbones", other_backbones)):
+        t1 = time.perf_counter()
+        phase(entry, card)
+        seconds[name] = round(time.perf_counter() - t1, 1)
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, build "
+          f"included; seconds per phase {json.dumps(seconds)}", flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

@@ -2,7 +2,9 @@
 
 The JAX package beside it stays the reference; this package imports
 nothing of it (nor JAX). Ported so far: few-shot serving (adapt + predict
-through ``serve.engine.ServingEngine``) on the VGG backbone; meta-training
+through ``serve.engine.ServingEngine``); every backbone of the JAX
+package (``models``: VGG with batch or layer norm, ResNet-12, the MLP);
+meta-training
 (``meta.outer``) on the episode data path (``data``); the trainer's entry
 point (``experiment.ExperimentBuilder``, the ``train_maml_system`` CLI)
 with checkpoints in the JAX package's format; and the batch-norm +

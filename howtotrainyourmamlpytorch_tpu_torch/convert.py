@@ -7,7 +7,13 @@ port's :class:`MetaTrainState`: HWIO conv kernels become OIHW, ``(in,
 out)`` linear weights become ``(out, in)``, in the parameters and in
 Adam's ``mu``/``nu`` alike. Leaf names are kept, so the LSLR vectors map
 one to one. Both packages flatten features in NHWC order, so the linear's
-input dimension needs no permutation.
+input dimension needs no permutation. The same two rules cover every
+backbone: ResNet-12's 1x1 skip kernels are 4-d ``w`` (HWIO -> OIHW), the
+MLP's ``dense{i}`` weights are 2-d ``w``. Layer-norm γ/β (``(1, H, W,
+C)``, named ``gamma``/``beta``) keep the JAX package's NHWC order in the
+port (models/layers.py § layer_norm_apply applies them so) and cross
+unchanged; an empty norm state (the MLP's ``{}``, layer norm's
+``{"norm0": {}, ...}``) crosses as the same empty dicts.
 
 :func:`state_to_jax` is its inverse: the port's state as numpy trees in
 the JAX layout, Adam's state as the flax state dict of optax's

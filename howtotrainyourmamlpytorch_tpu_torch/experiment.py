@@ -160,7 +160,8 @@ class ExperimentBuilder:
         self._rewind_requested = False
         # Device-resident cache of the fixed val/test batches.
         self._eval_cache: Dict[str, List[Any]] = {}
-        # The test protocol's ensemble argmax per (episode, query row).
+        # The test protocol's ensemble argmax per (episode, query row);
+        # the mean prediction for regression.
         self.ensemble_predictions: Optional[np.ndarray] = None
         if cfg.continue_from_epoch != "from_scratch":
             self._resume(cfg.continue_from_epoch)
@@ -459,9 +460,9 @@ class ExperimentBuilder:
     def run_test_protocol(self) -> Dict[str, Any]:
         """Reference test protocol: ensemble the top-k checkpoints by val
         accuracy over the fixed test episodes; vote by summed per-sample
-        softmax probabilities; report mean ± std of per-episode accuracy;
-        write ``test_summary.csv``. (The regression branch waits for the
-        ``mlp`` backbone; ROADMAP.md, Queue 1.)"""
+        softmax probabilities (regression: the mean prediction, scored by
+        per-episode −MSE, with ``test_mse_mean``); report mean ± std of
+        per-episode accuracy; write ``test_summary.csv``."""
         cfg = self.cfg
         t0 = time.perf_counter()
         # Filter by presence: bookkeeping can outlive a file.
@@ -480,14 +481,31 @@ class ExperimentBuilder:
                                  collect_logits=True)
             per_model_logits.append(res["logits"])
             per_model_acc[f"epoch_{epoch}"] = res["accuracy"]
-        # Ensemble: sum of softmax probabilities over models, argmax.
-        probs = sum(torch.softmax(torch.from_numpy(lg), dim=-1)
-                    for lg in per_model_logits)
-        preds = probs.argmax(-1).numpy()  # (E, N*T)
-        n, t = cfg.num_classes_per_set, cfg.num_target_samples
-        labels = np.tile(np.repeat(np.arange(n), t)[None],
-                         (preds.shape[0], 1))
-        per_episode_acc = (preds == labels).mean(axis=1)
+        if cfg.task_type == "regression":
+            # A regression head has one output unit, so a softmax vote
+            # would report accuracy 1.0 unconditionally. The ensemble is
+            # the mean of per-model predictions, scored as per-episode MSE
+            # against the episodes' float targets; "accuracy" stays −MSE,
+            # the epoch loop's convention.
+            preds = np.mean([lg[..., 0] for lg in per_model_logits],
+                            axis=0)  # (E, N*T)
+            targets, n_left = [], cfg.num_evaluation_tasks
+            for batch in self._eval_batches("test"):
+                y = batch.target_y.cpu().numpy()
+                take = min(n_left, y.shape[0])
+                targets.append(y[:take])
+                n_left -= take
+            labels = np.concatenate(targets)  # (E, N*T) float
+            per_episode_acc = -((preds - labels) ** 2).mean(axis=1)
+        else:
+            # Ensemble: sum of softmax probabilities over models, argmax.
+            probs = sum(torch.softmax(torch.from_numpy(lg), dim=-1)
+                        for lg in per_model_logits)
+            preds = probs.argmax(-1).numpy()  # (E, N*T)
+            n, t = cfg.num_classes_per_set, cfg.num_target_samples
+            labels = np.tile(np.repeat(np.arange(n), t)[None],
+                             (preds.shape[0], 1))
+            per_episode_acc = (preds == labels).mean(axis=1)
         self.ensemble_predictions = preds
         result = {
             "test_accuracy_mean": float(per_episode_acc.mean()),
@@ -496,6 +514,8 @@ class ExperimentBuilder:
             "num_episodes": int(per_episode_acc.shape[0]),
             "per_model_accuracy": per_model_acc,
         }
+        if cfg.task_type == "regression":
+            result["test_mse_mean"] = -result["test_accuracy_mean"]
         # One packed column keeps the CSV schema stable as the member set
         # changes between re-runs.
         save_statistics(
@@ -509,8 +529,10 @@ class ExperimentBuilder:
             k: v for k, v in result.items() if k != "per_model_accuracy"},
             per_model_accuracy=per_model_acc,
             seconds=time.perf_counter() - t0)
-        print(f"test: {result['test_accuracy_mean']:.4f} "
-              f"± {result['test_accuracy_std']:.4f} "
+        score = (f"mse {result['test_mse_mean']:.4f}"
+                 if cfg.task_type == "regression"
+                 else f"{result['test_accuracy_mean']:.4f}")
+        print(f"test: {score} ± {result['test_accuracy_std']:.4f} "
               f"({result['num_models']}-model ensemble, "
               f"{result['num_episodes']} episodes)", flush=True)
         return result

@@ -27,8 +27,9 @@ Remat (``remat_inner_steps``) uses ``torch.utils.checkpoint`` without
 reentry, and only where an outer backward will run:
 
 * ``'block_outs'`` (default): the target forwards run with one checkpoint
-  segment per VGG stage (the stage inputs, i.e. the pooled block outputs,
-  are what stays saved). Support forwards are not checkpointed: under
+  segment per VGG stage or ResNet-12 residual block (the segment inputs,
+  i.e. the pooled block outputs, are what stays saved; the MLP has no
+  blocks and runs none). Support forwards are not checkpointed: under
   first order no outer backward reads them, and under second order the
   inner ``autograd.grad(create_graph=True)`` unpacks their saved tensors
   at once and the double-backward graph keeps what it unpacked.

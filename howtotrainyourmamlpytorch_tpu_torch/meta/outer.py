@@ -199,7 +199,7 @@ def reconcile_loaded_shapes(cfg: MAMLConfig, state: MetaTrainState,
     numerically what the old parameterization computed. Any other shape
     mismatch refuses loudly. Run AFTER :func:`migrate_lslr_rows`. The
     counterpart of the JAX package's ``meta/outer.py §
-    reconcile_loaded_shapes`` (layer norm itself is not ported yet)."""
+    reconcile_loaded_shapes``."""
     have = state_leaf_shapes(state)
     if len(have) != len(template_shapes):
         raise ValueError(

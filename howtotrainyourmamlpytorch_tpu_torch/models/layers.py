@@ -8,7 +8,8 @@ the port writes the task axis out:
 
 * every parameter and state leaf carries a leading task axis ``T``
   (``conv w`` is ``(T, O, I, kh, kw)``, BN ``gamma`` is
-  ``(T, num_steps, C)``, ``linear w`` is ``(T, out, in)``);
+  ``(T, num_steps, C)``, layer-norm ``gamma`` is ``(T, 1, H, W, C)`` in
+  the JAX package's NHWC order, ``linear w`` is ``(T, out, in)``);
 * activations are NCHW tensors in ``torch.channels_last`` memory format
   with the task axis folded into the channels: ``(N, T·C, H, W)``, where
   ``N`` is the examples of one task. A per-task convolution is then one
@@ -72,6 +73,15 @@ def batch_norm_init(num_features: int,
     state = {"mean": torch.zeros(num_steps, num_features),
              "var": torch.ones(num_steps, num_features)}
     return params, state
+
+
+def layer_norm_init(normalized_shape: Tuple[int, int, int]
+                    ) -> Tuple[Params, State]:
+    """Elementwise γ/β over one sample's ``(H, W, C)`` features, in the
+    JAX package's NHWC order, with a leading step axis of 1 (layer norm
+    has no per-step variant); no state."""
+    shape = (1,) + tuple(normalized_shape)
+    return {"gamma": torch.ones(shape), "beta": torch.zeros(shape)}, {}
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +265,42 @@ def batch_norm_act_apply(cfg, params: Params, state: State, x: torch.Tensor,
     if negative_slope == 0.0:
         y = F.relu(y)
     elif negative_slope != 1.0:
-        y = F.leaky_relu(y, negative_slope)
+        y = leaky_relu(y, negative_slope)
     return y, new_state
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: ``where(x >= 0, x, slope·x)`` with the slope
+    rounded to x's dtype first, as JAX rounds its weakly typed scalar.
+    (``F.leaky_relu`` multiplies a bf16 x by the f32 slope and rounds
+    once, which differs in the last bit.)"""
+    slope = float(torch.tensor(negative_slope, dtype=x.dtype))
+    return torch.where(x >= 0, x, x * slope)
+
+
+# ---------------------------------------------------------------------------
+# layer norm (the reference's MetaLayerNormLayer)
+# ---------------------------------------------------------------------------
+
+def layer_norm_apply(params: Params, state: State, x: torch.Tensor,
+                     step: int, *, training: bool,
+                     eps: float = 1e-5) -> Tuple[torch.Tensor, State]:
+    """Per-sample normalization of ``(N, T·C, H, W)``: statistics per
+    (example, task) over that task's ``(H, W, C)`` features in f32, then
+    the elementwise γ/β ``(T, 1, H, W, C)``, applied in their NHWC order
+    on the channels_last view. ``step`` and ``training`` are unused (no
+    per-step rows, no state), as in the JAX package."""
+    gamma, beta = params["gamma"][:, 0], params["beta"][:, 0]
+    t, h, w, c = gamma.shape
+    n = x.shape[0]
+    xs = _channels_last(x).permute(0, 2, 3, 1).reshape(n, h, w, t, c)
+    xf = xs.float()
+    mean = xf.mean(dim=(1, 2, 4), keepdim=True)
+    var = xf.var(dim=(1, 2, 4), correction=0, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * gamma.permute(1, 2, 0, 3) + beta.permute(1, 2, 0, 3)
+    return (y.to(x.dtype).reshape(n, h, w, t * c).permute(0, 3, 1, 2),
+            state)
 
 
 def max_pool2d(x: torch.Tensor, window: int = 2,
@@ -270,3 +314,11 @@ def max_pool2d(x: torch.Tensor, window: int = 2,
             f"too small for a {window}x{window}/stride-{stride} pool — the "
             f"network has more pooling stages than the image size supports")
     return F.max_pool2d(x, window, stride)
+
+
+def global_mean_pool(x: torch.Tensor, num_tasks: int) -> torch.Tensor:
+    """``(N, T·C, H, W)`` -> ``(T, N, C)``: the mean over H and W in x's
+    dtype (the JAX package's ``jnp.mean(x, axis=(1, 2))``)."""
+    n, tc, _, _ = x.shape
+    return (x.mean(dim=(2, 3)).reshape(n, num_tasks, tc // num_tasks)
+            .permute(1, 0, 2))

@@ -3,7 +3,9 @@ JAX ``models/vgg.py``).
 
 ``num_stages`` blocks of [3x3 conv (``cnn_num_filters``) → per-step BN →
 ReLU → 2x2 max-pool] → flatten (NHWC order) → linear to
-``num_output_units`` logits::
+``num_output_units`` logits. With ``norm_layer='layer_norm'`` each norm is
+a per-sample layer norm with an elementwise affine over the conv output's
+``(H, W, C)``, followed by ReLU (no per-step rows, empty norm state)::
 
     init(generator)                                  -> (params, bn_state)
     apply(params, bn_state, x, step, training, plain=False, remat=False)
@@ -21,13 +23,16 @@ recomputed in the backward (meta/inner.py, ``remat_policy='block_outs'``).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.models import layers
+from howtotrainyourmamlpytorch_tpu_torch.models.mlp import make_mlp
+from howtotrainyourmamlpytorch_tpu_torch.models.resnet12 import make_resnet12
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -39,23 +44,26 @@ def _compute_dtype(cfg: MAMLConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _stage_geometry(cfg: MAMLConfig) -> Tuple[int, int]:
-    """Spatial size after the conv tower (conv → optional pool per stage),
-    with the JAX package's SAME/VALID arithmetic."""
+def _stage_shapes(cfg: MAMLConfig) -> List[Tuple[int, int]]:
+    """Spatial size of each stage's conv output, then of the tower's
+    output (conv → optional pool per stage), with the JAX package's
+    SAME/VALID arithmetic."""
     h, w, _ = cfg.image_shape
     stride = 1 if cfg.max_pooling else 2
+    shapes = []
     for _ in range(cfg.num_stages):
         if cfg.conv_padding:
             h, w = -(-h // stride), -(-w // stride)
         else:
             h, w = (h - 3) // stride + 1, (w - 3) // stride + 1
+        shapes.append((h, w))
         if cfg.max_pooling:
             h, w = (h - 2) // 2 + 1, (w - 2) // 2 + 1
         if h <= 0 or w <= 0:
             raise ValueError(
                 f"image {cfg.image_shape[:2]} too small for "
                 f"{cfg.num_stages} stages")
-    return h, w
+    return shapes + [(h, w)]
 
 
 def _features_apply(cfg: MAMLConfig, params: Params, state: State,
@@ -71,9 +79,14 @@ def _features_apply(cfg: MAMLConfig, params: Params, state: State,
     def stage(conv, norm, norm_state, h):
         h = layers.conv2d_apply(conv, h, stride=stride, padding=padding,
                                 compute_dtype=compute_dtype)
-        h, new = layers.batch_norm_act_apply(
-            cfg, norm, norm_state, h, step, training=training,
-            negative_slope=0.0, plain=plain)
+        if cfg.norm_layer == "batch_norm":
+            h, new = layers.batch_norm_act_apply(
+                cfg, norm, norm_state, h, step, training=training,
+                negative_slope=0.0, plain=plain)
+        else:
+            h, new = layers.layer_norm_apply(norm, norm_state, h, step,
+                                             training=training)
+            h = F.relu(h)
         if cfg.max_pooling:
             h = layers.max_pool2d(h)
         return h, new
@@ -92,10 +105,6 @@ def _features_apply(cfg: MAMLConfig, params: Params, state: State,
 
 def make_vgg(cfg: MAMLConfig) -> Tuple[InitFn, ApplyFn]:
     """Build (init, apply) for the VGG backbone described by ``cfg``."""
-    if cfg.norm_layer != "batch_norm":
-        raise NotImplementedError(
-            "norm_layer='layer_norm' is not ported yet (ROADMAP.md, port "
-            "queue: resnet12/mlp and layer_norm)")
     _, _, c = cfg.image_shape
     num_steps = cfg.bn_num_steps
 
@@ -103,13 +112,18 @@ def make_vgg(cfg: MAMLConfig) -> Tuple[InitFn, ApplyFn]:
         params: Params = {}
         state: State = {}
         in_ch = c
+        *conv_out, (fh, fw) = _stage_shapes(cfg)
         for i in range(cfg.num_stages):
             params[f"conv{i}"] = layers.conv2d_init(gen, in_ch,
                                                     cfg.cnn_num_filters)
-            params[f"norm{i}"], state[f"norm{i}"] = layers.batch_norm_init(
-                cfg.cnn_num_filters, num_steps)
+            if cfg.norm_layer == "batch_norm":
+                params[f"norm{i}"], state[f"norm{i}"] = (
+                    layers.batch_norm_init(cfg.cnn_num_filters, num_steps))
+            else:
+                params[f"norm{i}"], state[f"norm{i}"] = (
+                    layers.layer_norm_init((*conv_out[i],
+                                            cfg.cnn_num_filters)))
             in_ch = cfg.cnn_num_filters
-        fh, fw = _stage_geometry(cfg)
         params["linear"] = layers.linear_init(
             gen, fh * fw * cfg.cnn_num_filters, cfg.num_output_units)
         return params, state
@@ -127,11 +141,12 @@ def make_vgg(cfg: MAMLConfig) -> Tuple[InitFn, ApplyFn]:
 
 
 def make_model(cfg: MAMLConfig) -> Tuple[InitFn, ApplyFn]:
-    """Backbone dispatch. Only the VGG backbone is ported so far."""
+    """Backbone dispatch: ``vgg`` (batch or layer norm), ``resnet12``,
+    ``mlp``."""
     if cfg.backbone == "vgg":
         return make_vgg(cfg)
-    if cfg.backbone in ("resnet12", "mlp"):
-        raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported yet (ROADMAP.md, "
-            f"port queue: resnet12/mlp and layer_norm)")
+    if cfg.backbone == "resnet12":
+        return make_resnet12(cfg)
+    if cfg.backbone == "mlp":
+        return make_mlp(cfg)
     raise ValueError(f"unknown backbone {cfg.backbone!r}")

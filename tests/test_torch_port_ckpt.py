@@ -355,8 +355,9 @@ def test_migrate_lslr_rows_matches_jax():
 
 
 def _ln_state(gamma_shape, conv_shape=(3, 3, 3, 8)):
-    """A hand-built JAX state with a layer-norm γ/β (layer norm is not
-    ported yet, so no model builds one)."""
+    """A hand-built JAX state with one layer-norm γ/β of
+    ``gamma_shape``, old or current format (the model-built case is in
+    tests/test_torch_port_backbones.py)."""
     rng = np.random.default_rng(12)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)
     params = {"conv0": {"w": r(*conv_shape), "b": r(conv_shape[-1])},

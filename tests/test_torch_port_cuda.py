@@ -31,6 +31,11 @@ SMALL = [(100, 384), (1000, 384)]
 # tasks at once (1152 columns).
 TRAIN_STAGES = [(25 * hw * hw, 48) for hw in (84, 42, 21, 10)]
 EVAL_STAGES = [(25 * hw * hw, 24 * 48) for hw in (84, 42, 21, 10)]
+# ResNet-12's training shapes (one task per microbatch): its four blocks'
+# widths 64/160/320/640 at 84/42/21/10.
+RESNET12_TRAIN = [(25 * hw * hw, width)
+                  for hw, width in ((84, 64), (42, 160), (21, 320),
+                                    (10, 640))]
 
 
 @pytest.fixture
@@ -66,6 +71,101 @@ def test_cuda_tensor_launches_kernel(cuda_device, shape, dtype):
     torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
     torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(v, v_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("slope", [0.1, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RESNET12_TRAIN)
+def test_resnet12_shapes_and_slopes_match_plain(cuda_device, shape, dtype,
+                                                 slope):
+    """ResNet-12's training shapes at its slopes (0.1 leaky, 1.0 none):
+    the kernel's forward, statistics and gradients (its autograd.Function
+    against autograd of the plain version) on the card. Tolerances as
+    chip_smoke.py's: forward 2 ulp bf16 / sum order f32; gradients 2 ulp
+    (bf16) or 1e-3 (f32) of the largest entry."""
+    x, gamma, beta = _stage_inputs(shape, dtype, cuda_device, seed=4)
+    rng = np.random.default_rng(5)
+    gy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda_device, dtype)
+    with torch.no_grad():
+        y_k = bn_act.bn_act(x, gamma, beta, 1e-5, slope)[0]
+        y_p = bn_act.bn_act(x, gamma, beta, 1e-5, slope, plain=True)[0]
+    # Opposite sides of the kink have other derivatives by design.
+    gy = gy.masked_fill((y_k > 0) != (y_p > 0), 0)
+    outs = []
+    for plain in (False, True):
+        xs, gs, bs = (t.clone().requires_grad_(True) for t in (x, gamma,
+                                                                beta))
+        y, m, v = bn_act.bn_act(xs, gs, bs, 1e-5, slope, plain=plain)
+        grads = torch.autograd.grad((y.float() * gy.float()).sum()
+                                    + m.sum() + v.sum(), (xs, gs, bs))
+        outs.append((y.detach(), m.detach(), v.detach(), *grads))
+    torch.cuda.synchronize()
+    k, p = outs
+    bf16 = dtype == torch.bfloat16
+    rtol, atol = (1.6e-2, 1e-2) if bf16 else (1e-4, 1e-5)
+    torch.testing.assert_close(k[0].float(), p[0].float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(k[1], p[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k[2], p[2], rtol=1e-4, atol=1e-5)
+    grtol = 1.6e-2 if bf16 else 1e-3
+    for a, b in zip(k[3:], p[3:]):
+        scale = float(b.abs().max()) or 1.0
+        torch.testing.assert_close(a.float(), b.float(), rtol=grtol,
+                                   atol=grtol * scale)
+
+
+@pytest.fixture
+def no_tf32():
+    """Full f32 convolutions and matrix products for the test (cuDNN runs
+    f32 convolutions in TF32 by default, which rounds their inputs to 10
+    bits: kernel-vs-plain last-bit differences then grow to bf16's
+    size)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_resnet12_train_step_on_the_card_kernel_matches_plain(cuda_device,
+                                                              no_tf32):
+    """A small ResNet-12 on the card: one second-order MSL train step
+    through the kernel, launching it 16 x (K + K x 2) times per microbatch
+    ('block_outs' remat), then an f32 second-order meta-gradient with the
+    kernel against its plain version, TF32 off (loss 2e-3, cosine 0.998:
+    chip_smoke.py's R12_F32_FLOORS)."""
+    cfg = MAMLConfig(dataset_name="synthetic", backbone="resnet12",
+                     image_height=20, image_width=20, image_channels=3,
+                     num_classes_per_set=3, num_samples_per_class=2,
+                     num_target_samples=2, cnn_num_filters=8,
+                     number_of_training_steps_per_iter=2, batch_size=2,
+                     task_microbatches=2, bn_backend="pallas",
+                     bn_fast_math=True, clamp_meta_grad_value=10.0)
+    init, apply = make_model(cfg)
+    state = init_train_state(cfg, init, seed=0, device=cuda_device)
+    batches = MetaLearningDataLoader(cfg, device=cuda_device)\
+        .get_train_batches(0, 2)
+    bn_act.reset_launches()
+    new, m = make_train_step(cfg, apply)(state, next(batches), 0,
+                                         second_order=True, use_msl=True)
+    torch.cuda.synchronize()
+    assert bn_act.launches == 2 * 16 * (2 + 2 * 2)
+    assert new.step == 1 and torch.isfinite(m.loss)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    _, apply32 = make_model(cfg32)
+    batch = next(batches)
+    (lk, *_, gk), (lp, *_, gp) = [make_meta_gradients(cfg32, apply32)(
+        new, batch, 1, second_order=True, use_msl=False, plain=plain)
+        for plain in (False, True)]
+    assert abs(float(lk) - float(lp)) <= 2e-3 * abs(float(lp))
+    flat = lambda g: torch.cat([t.flatten() for sub in g.values()
+                                for leaf in sub.values()
+                                for t in leaf.values()])
+    a, b = flat(gk).double(), flat(gp).double()
+    assert float(a @ b / (a.norm() * b.norm())) >= 0.998
 
 
 def test_engine_on_the_card_launches_the_kernel(cuda_device):

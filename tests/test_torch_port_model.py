@@ -172,10 +172,30 @@ def test_layout_helpers_round_trip():
     np.testing.assert_array_equal(flat.numpy(), x.reshape(2, 3, -1).numpy())
 
 
-def test_make_model_refuses_unported_backbones():
-    _, cfg = _configs()
-    for backbone in ("resnet12", "mlp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_model(cfg.replace(backbone=backbone))
-    with pytest.raises(NotImplementedError, match="layer_norm"):
-        make_model(cfg.replace(norm_layer="layer_norm"))
+@pytest.mark.parametrize("kw,match", [
+    (dict(backbone="resnet13"), "unknown backbone"),
+    (dict(backbone="resnet12", norm_layer="layer_norm"), "batch_norm"),
+    (dict(bn_backend="pallas", norm_layer="layer_norm"),
+     "requires norm_layer")],
+    ids=["unknown_backbone", "resnet12_layer_norm", "pallas_layer_norm"])
+def test_make_model_refusals(kw, match):
+    """What ``make_model`` still refuses, as the JAX package does: an
+    unknown backbone, ResNet-12 with layer norm; the fused BN kernel with
+    layer norm is refused by the config itself."""
+    jcfg, cfg = _configs()
+    if "norm_layer" in kw and "backbone" not in kw:
+        for make in (jcfg.replace, cfg.replace):
+            with pytest.raises(ValueError, match=match):
+                make(**kw)
+        return
+    for build, c in ((make_model, cfg), (jax_model, jcfg)):
+        if kw["backbone"] == "resnet12":
+            c = c.replace(**kw)
+        else:
+            # The config refuses the name too; force it past that check
+            # to reach the dispatch's own refusal.
+            with pytest.raises(ValueError, match=match):
+                c.replace(**kw)
+            object.__setattr__(c, "backbone", kw["backbone"])
+        with pytest.raises(ValueError, match=match):
+            build(c)

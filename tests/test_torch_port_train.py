@@ -137,9 +137,11 @@ def _jax_grads_port_layout(g):
 
 
 def _dead_bias(name):
-    """Conv biases and their LSLR vectors: both meta-gradients are
-    analytically zero (the bias's inner gradient is)."""
-    return name.split("/")[1].startswith("conv") and name.endswith("/b")
+    """Conv biases and their LSLR vectors (every conv of the VGG and of
+    ResNet-12, whose layers are ``block{b}_conv{j}`` and
+    ``block{b}_skip_conv``): both meta-gradients are analytically zero
+    (the bias's inner gradient is)."""
+    return "conv" in name.split("/")[1] and name.endswith("/b")
 
 
 def _assert_grads(got, want, *, rel=None, cos=None):
