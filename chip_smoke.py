@@ -64,11 +64,11 @@ failure:
    the state the builder holds), and exactly the BN kernel launches
    derived for that path (3360). Then the same run paused after epoch 0
    and resumed with ``--continue_from_epoch latest`` must agree with it.
-   cuDNN runs deterministic algorithms in this phase
-   (``torch.backends.cudnn.deterministic``), so the resumed run is
-   expected to be bitwise the uninterrupted one; it is held by per-leaf
-   update cosines (``RESUME_COSINE``) and the epoch-1 train loss
-   (``RESUME_LOSS_RTOL``), and whether it is bitwise is printed.
+   The entry point runs cuDNN's deterministic algorithms
+   (``device.numerics_policy``), so the resumed run is expected to be
+   bitwise the uninterrupted one; it is held by per-leaf update cosines
+   (``RESUME_COSINE``) and the epoch-1 train loss (``RESUME_LOSS_RTOL``),
+   and whether it is bitwise is printed.
 6. The other backbones at full width (``other_backbones``): the CLI on
    the ResNet-12 pod JSON mapped onto one card and cut in length
    (``R12_CLI_ARGS``: 1 epoch x 3 iterations of 8 tasks, 32 evaluation
@@ -81,6 +81,15 @@ failure:
    beside the f32 control); then the sinusoid JSON (the MLP, regression:
    a finite ``test_mse_mean``) and the omniglot JSON with layer norm
    through the CLI, each launching the BN kernel 0 times.
+7. Phase 5's CLI run again with the telemetry plane on (``cli_telemetry``:
+   training health every step, a perf sample every 2 steps, a device
+   trace of epoch 1, alert rules): its rows, ``metrics.prom``,
+   ``trace.json``, the Chrome trace and alerts checked, the BN-kernel
+   launches of phase 5, and final weights and Adam state bitwise phase
+   5's. Then what health and a sample window add to a step, what the
+   profiler labels cost with the profiler off, and the port's sampler
+   beside this script's own profile of one step (phases 4 and 6 print
+   the same pair for their profiled steps).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -90,7 +99,6 @@ when no CUDA device is available or the port's package is missing.
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 import json
 import os
 import statistics
@@ -211,12 +219,16 @@ def _device_events(prof):
     finished profiler window recorded, read from its raw records: the
     events ``prof.events()`` would list as CUDA, without building its
     Python event tree (over a minute for a ResNet-12 step's ~1M host
-    ops)."""
+    ops). The profiler also lists each ``record_function`` label's span
+    on the device; those are not activity and are left out."""
     from torch.autograd import DeviceType
     return [(e.name(), e.duration_ns() / 1e6)
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA
-            and not getattr(e, "is_hidden_event", lambda: False)()]
+            and not getattr(e, "is_hidden_event", lambda: False)()
+            and not e.is_user_annotation()
+            and "annotation" not in getattr(e, "activity_type",
+                                            lambda: "")()]
 
 
 def _device_ms(fn, iters: int = 20, attempts: int = 3):
@@ -714,23 +726,15 @@ def _swapped(module, name: str, fn):
         setattr(module, name, saved)
 
 
-def _family_of():
-    """``scripts/torch_serve_profile.py``'s kernel-name -> family map."""
-    path = os.path.join(REPO, "scripts", "torch_serve_profile.py")
-    spec = importlib.util.spec_from_file_location("torch_serve_profile",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.family
-
-
 def _profiled(label: str, fn, card: str) -> dict:
     """Run ``fn`` once under the profiler: wall (synchronized), device
-    time by ``scripts/torch_serve_profile.py``'s kernel families, idle
-    share; printed and returned."""
+    time by the port's kernel families (``telemetry/profiler.py §
+    FAMILIES``), idle share (1 − summed kernel time / wall); printed and
+    returned. Read here, apart from the port's own sampler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    family = _family_of()
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import (
+        kernel_family as family)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -751,6 +755,95 @@ def _profiled(label: str, fn, card: str) -> dict:
           f"kernels) {json.dumps(by_family)} ({card})", flush=True)
     return {"wall_ms": wall_ms, "device_ms": device_ms, "idle": idle,
             "by_family": by_family}
+
+
+def _deterministic_cost(label: str, fn, card: str,
+                        turns=("off", "on", "on", "off")) -> None:
+    """Wall time of ``fn`` (synchronized) with cuDNN's deterministic
+    algorithms on and off, in ``turns`` after one warm-up call of each,
+    ``cudnn.benchmark`` off throughout (the trainer's policy against
+    torch's default); printed."""
+    import torch
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    ms = {"off": [], "on": []}
+    try:
+        cudnn.benchmark = False
+        for turn in ("off", "on") + tuple(turns):
+            cudnn.deterministic = turn == "on"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[turn].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    on, off = (statistics.median(ms[k][1:]) for k in ("on", "off"))
+    print(f"{label}: cudnn.deterministic on {on:.1f} ms, off {off:.1f} ms "
+          f"(on/off {on / off:.3f}; medians after a warm-up, runs "
+          f"{json.dumps({k: [round(x, 1) for x in v] for k, v in ms.items()})}"
+          f") ({card})", flush=True)
+
+
+def _print_sample(label: str, row: dict, card: str) -> None:
+    """One ``perf_profile`` summary of the port's sampler, printed."""
+    fams = {f: [round(s * 1e3, 3), row["per_family_kernels"][f]]
+            for f, s in row["per_family_seconds"].items()}
+    regions = {r: round(s * 1e3, 3)
+               for r, s in row["per_region_seconds"].items()}
+    mfu = row["mfu"]
+    print(f"{label}: the port's sampler: wall "
+          f"{row['wall_seconds'] * 1e3:.1f} ms, device (union) "
+          f"{row['device_compute_seconds'] * 1e3:.1f} ms, compute / idle / "
+          f"host gap {row['device_compute_frac']:.4f} / "
+          f"{row['device_idle_frac']:.4f} / {row['dispatch_gap_frac']:.4f} "
+          f"(idle share {1 - row['device_compute_frac']:.3f}); by family "
+          f"(ms, kernels) {json.dumps(fams)}; by region (ms) "
+          f"{json.dumps(regions)}; FLOPs {row['flops']}, MFU "
+          f"{'n/a' if mfu is None else f'{mfu:.5f}'} against "
+          f"{row['peak_flops']:.3g} FLOP/s ({row['peak_flops_source']}); "
+          f"device records lost {row['device_records_lost']} ({card})",
+          flush=True)
+
+
+def _sampled(label: str, name: str, fn, card: str, bn_kernels: int) -> dict:
+    """Run ``fn`` (one train step of phase card ``name``) under the port's
+    own perf sampler, after counting the same call's FLOPs, as the
+    trainer does with ``profile_every_n_steps``; printed and returned.
+    Fails if the sampler counts an error, its fractions do not sum to 1,
+    or it holds other than the step's ``bn_kernels`` BN-kernel records
+    (it lost device records)."""
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import (
+        MetricsRegistry)
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
+    _, flops = profiler.count_flops(fn)
+    reg = MetricsRegistry()
+    sampler = profiler.PerfSampler(1, registry=reg, device="cuda")
+    sampler.register_card(name, profiler.build_cost_card(
+        name, flops=flops, kind=sampler.kind, peaks=sampler.peaks))
+    if not sampler.start_window(0):
+        raise AssertionError(f"{label}: the sampler did not start")
+    try:
+        fn()
+    except BaseException:
+        sampler.abort_window()
+        raise
+    row = sampler.end_window(0, executable=name)
+    errors = reg.counter(profiler.ERRORS_COUNTER).value
+    if row is None or errors:
+        raise AssertionError(f"{label}: the sampler failed ({errors} "
+                             f"errors)")
+    total = (row["device_compute_frac"] + row["device_idle_frac"]
+             + row["dispatch_gap_frac"])
+    if abs(total - 1) > 1e-6:
+        raise AssertionError(f"{label}: fractions sum to {total}")
+    _print_sample(label, row, card)
+    got = row["per_family_kernels"].get("bn_act")
+    if got != bn_kernels or row["device_records_lost"]:
+        raise AssertionError(f"{label}: {got} bn_act records, the step "
+                             f"launches {bn_kernels}; "
+                             f"{row['device_records_lost']} lost")
+    return row
 
 
 def _dead_bias(name: str) -> bool:
@@ -1001,6 +1094,12 @@ def train_flagship(entry: dict, card: str) -> None:
     torch.cuda.synchronize()
     _profiled("train profile, one second-order step",
               lambda: train_step(state, spare, 41, **so_step), card)
+    _sampled("train profile, one second-order step", "train_so1_msl0",
+             lambda: train_step(state, spare, 41, **so_step), card,
+             bn_kernels=micro * s * (k + remat))
+    _deterministic_cost("train, one second-order step",
+                        lambda: train_step(state, spare, 41, **so_step),
+                        card, turns=("off", "on", "on", "off", "off", "on"))
 
     # Remat: one second-order step, timed and its peak memory, per
     # variant, in turns.
@@ -1155,9 +1254,11 @@ def _verify_run(tag: str, builder, n_epochs: int, n_models: int,
     return stats, test, events
 
 
-def cli_flagship(entry: dict, card: str) -> None:
+def cli_flagship(entry: dict, card: str) -> dict:
     """Phase 5: the trainer's CLI at flagship width; adds the BN kernel's
-    launches over the uninterrupted run to ``entry``."""
+    launches over the uninterrupted run to ``entry``. Returns that run's
+    final state leaves (on the host), epoch seconds and launches, which
+    phase 7 holds its telemetry run against."""
     import shutil
     import tempfile
     import torch
@@ -1167,10 +1268,6 @@ def cli_flagship(entry: dict, card: str) -> None:
     from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
         load_statistics)
 
-    saved = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     runs_dir = os.path.join(REPO, ".smoke_runs")
     os.makedirs(runs_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="cli_", dir=runs_dir)
@@ -1199,7 +1296,9 @@ def cli_flagship(entry: dict, card: str) -> None:
               f"{stats['val_accuracy']}; test {test['test_accuracy_mean']} "
               f"over {test['num_episodes']} episodes, {test['num_models']} "
               f"models; bn_act launches {launches} = {want}; cudnn "
-              f"deterministic ({card})", flush=True)
+              f"deterministic {torch.backends.cudnn.deterministic} after "
+              f"the run (the entry point's policy restores it) ({card})",
+              flush=True)
         print(f"cli: checkpoint bytes {events['checkpoint_bytes']}, save ms "
               f"{events['save_ms']}; validation sweep ms {events['val_ms']} "
               f"(the first caches the episodes on the card); test protocol "
@@ -1242,9 +1341,10 @@ def cli_flagship(entry: dict, card: str) -> None:
         if worst[0] < RESUME_COSINE or rel > RESUME_LOSS_RTOL:
             raise AssertionError("cli: the resumed run disagrees with the "
                                  "uninterrupted one")
+        return {"leaves": {n: t.cpu() for n, t in a.items()},
+                "step": builder.state.step, "launches": launches,
+                "epoch_seconds": per_epoch["epoch_seconds"]}
     finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
-            saved)
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
 
@@ -1485,6 +1585,13 @@ def other_backbones(entry: dict, card: str) -> None:
         batch = next(batches)
         _profiled("resnet12 train profile, one second-order MSL step",
                   lambda: builder.train_step(state, batch, 0, **phase), card)
+        _sampled("resnet12 train profile, one second-order MSL step",
+                 "train_so1_msl1",
+                 lambda: builder.train_step(state, batch, 0, **phase), card,
+                 bn_kernels=per_step)
+        _deterministic_cost(
+            "resnet12 train, one second-order MSL step",
+            lambda: builder.train_step(state, batch, 0, **phase), card)
         val = loader.get_val_batches()
         eval_batch = next(val)
         val.close()
@@ -1569,6 +1676,254 @@ def other_backbones(entry: dict, card: str) -> None:
         raise AssertionError("phase 6: " + "; ".join(failures))
 
 
+# Phase 7: phase 5's CLI run with the telemetry plane on. Health every
+# step (at a dispatch sync every step), a perf sample every 2 steps, a
+# device trace of epoch 1's first step and two alert rules: one that
+# must fire (every epoch reports a train loss above 0) and one that must
+# not (no perf sample fails).
+TELEMETRY_ARGS = ["--dispatch_sync_every", "1",
+                  "--health_metrics_every_n_steps", "1",
+                  "--profile_every_n_steps", "2", "--profile_epoch", "1",
+                  "--profile_num_steps", "1"]
+ALERT_RULES = {"rules": [
+    {"name": "train_loss_reported", "type": "threshold",
+     "metric": "train/train_loss", "op": ">", "value": 0.0,
+     "severity": "info"},
+    {"name": "perf_sample_failed", "type": "threshold",
+     "metric": "perf/errors", "op": ">", "value": 0.0,
+     "severity": "critical"}]}
+
+
+def _expected_regions(name: str) -> set:
+    """The labels a train step of phase card ``name`` runs kernels under."""
+    msl = name.endswith("msl1")
+    return {"episode_normalize", "task_adapt", "inner_support_forward",
+            "inner_support_grad", "inner_lslr_update", "meta_update",
+            "inner_msl_target_forward" if msl else "final_target_forward"}
+
+
+def _check_telemetry_rows(rows, n_epochs: int, n_steps: int,
+                          bn_per_step) -> list:
+    """Phase 7's checks of a run's ``events.jsonl``; returns the
+    ``perf_profile`` rows. ``bn_per_step(name)`` is the BN-kernel
+    launches of one step of phase card ``name``: a sample holds them all,
+    or it lost device records."""
+    import math
+    tele = [r for r in rows if r["event"] == "telemetry"]
+    beats = [r for r in rows if r["event"] == "heartbeat"]
+    if [r["epoch"] for r in tele] != list(range(n_epochs)) or (
+            [r["epoch"] for r in beats] != list(range(n_epochs))):
+        raise AssertionError(f"telemetry: {len(tele)} telemetry and "
+                             f"{len(beats)} heartbeat rows for {n_epochs} "
+                             f"epochs")
+    for r in tele:
+        frac = r["feed_stall_frac"]
+        if frac is None or not 0.0 <= frac <= 1.0 or not r["memory"]:
+            raise AssertionError(f"telemetry row {r}")
+    health = [r for r in rows if r["event"] == "health"]
+    if [r["iter"] for r in health] != list(range(1, n_steps + 1)):
+        raise AssertionError(f"telemetry: health rows at iterations "
+                             f"{[r['iter'] for r in health]}")
+    for r in health:
+        values = [v for k, v in r.items() if k not in ("ts", "event")]
+        flat = [x for v in values
+                for x in (v if isinstance(v, list) else [v])]
+        if not all(isinstance(x, (int, float)) and math.isfinite(x)
+                   for x in flat):
+            raise AssertionError(f"telemetry: non-finite health row {r}")
+    perf = [r for r in rows if r["event"] == "perf_profile"]
+    if not perf:
+        raise AssertionError("telemetry: no perf_profile row")
+    for r in perf:
+        total = (r["device_compute_frac"] + r["device_idle_frac"]
+                 + r["dispatch_gap_frac"])
+        missing = _expected_regions(r["top_executable"]) - set(
+            r["per_region_seconds"])
+        bn = r["per_family_kernels"].get("bn_act")
+        if (abs(total - 1) > 1e-6 or bn != bn_per_step(r["top_executable"])
+                or missing or r["device_records_lost"] or r["mfu"] is None
+                or not 0 < r["mfu"] <= 1):
+            raise AssertionError(f"telemetry: perf row (fractions sum "
+                                 f"{total}, regions missing {missing}) {r}")
+    return perf
+
+
+def _parse_prometheus(path: str) -> dict:
+    """``{name: value}`` of a Prometheus text file; raises on a line that
+    is neither a comment nor ``name value``."""
+    out = {}
+    for line in open(path).read().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
+    """Phase 7: phase 5's CLI run with the telemetry plane on
+    (``TELEMETRY_ARGS``, a device trace, ``ALERT_RULES``): a ``telemetry``
+    and a ``heartbeat`` row per epoch, a finite ``health`` row per step,
+    ``perf_profile`` rows whose fractions sum to 1 with the BN kernel's
+    family, the step's labels and an MFU in (0, 1], no sampler error, a
+    ``metrics.prom`` that parses, a ``trace.json`` that validates, the
+    Chrome trace, exactly one firing alert, the derived BN-kernel
+    launches, and final weights and Adam state bitwise phase 5's. Then
+    what health and a sample window add to a step, and what the labels
+    cost with the profiler off. Adds the run's launches to ``entry``."""
+    import shutil
+    import tempfile
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.data import (
+        MetaLearningDataLoader)
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry.trace import (
+        validate_trace)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
+
+    runs_dir = os.path.join(REPO, ".smoke_runs")
+    os.makedirs(runs_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="telemetry_", dir=runs_dir)
+    try:
+        rules = os.path.join(tmp, "rules.json")
+        with open(rules, "w") as f:
+            json.dump(ALERT_RULES, f)
+        prof_dir = os.path.join(tmp, "trace")
+        bn_act.reset_launches()
+        rc, builder, run_s = _cli_run(
+            TELEMETRY_ARGS + ["--profile_dir", prof_dir,
+                              "--alert_rules_path", rules],
+            os.path.join(tmp, "run"))
+        launches = bn_act.launches
+        cfg = builder.cfg
+        if rc != 0 or launches != ref["launches"]:
+            raise AssertionError(f"telemetry cli: exit {rc}, bn_act "
+                                 f"launched {launches} times (phase 5: "
+                                 f"{ref['launches']})")
+        entry["launches"] += launches
+        got = _state_leaves(builder.state)
+        diff = [n for n, t in ref["leaves"].items()
+                if not torch.equal(got[n].cpu(), t)]
+        if diff or builder.state.step != ref["step"]:
+            raise AssertionError(f"telemetry cli: final state differs "
+                                 f"from phase 5's in {diff}")
+        logs = builder.paths["logs"]
+        rows = read_jsonl(os.path.join(logs, "events.jsonl"))
+        k = cfg.number_of_training_steps_per_iter
+
+        def bn_per_step(name):
+            remat = 2 if (cfg.remat_inner_steps
+                          and cfg.remat_policy == "block_outs") else 1
+            return cfg.effective_task_microbatches() * _bn_per_forward(
+                cfg) * (k + (k if name.endswith("msl1") else 1) * remat)
+        perf = _check_telemetry_rows(rows, cfg.total_epochs,
+                                     cfg.total_epochs
+                                     * cfg.total_iter_per_epoch, bn_per_step)
+        prom = _parse_prometheus(os.path.join(logs, "metrics.prom"))
+        if prom.get("perf_errors") != 0.0 or not prom.get("perf_samples"):
+            raise AssertionError(f"telemetry: perf/errors "
+                                 f"{prom.get('perf_errors')}, samples "
+                                 f"{prom.get('perf_samples')}")
+        with open(os.path.join(logs, "trace.json")) as f:
+            validate_trace(json.load(f))
+        with open(os.path.join(prof_dir, "epoch1", "trace.json")) as f:
+            chrome = json.load(f)["traceEvents"]
+        firing = [r for r in rows if r["event"] == "alert"]
+        if ([(r["rule"], r["state"]) for r in firing]
+                != [("train_loss_reported", "firing")]):
+            raise AssertionError(f"telemetry: alert rows {firing}")
+        stats = _epoch_seconds(logs)
+        stall = [r["feed_stall_frac"] for r in rows
+                 if r["event"] == "telemetry"]
+        print(f"telemetry cli: exit 0 in {run_s:.1f} s; epoch seconds "
+              f"{stats} with telemetry on, {ref['epoch_seconds']} in phase "
+              f"5; feed stall per epoch {stall}; {len(rows)} events "
+              f"({len(perf)} perf samples, health "
+              f"every step), metrics.prom {len(prom)} series, trace.json "
+              f"valid, Chrome trace of epoch 1 {len(chrome)} events, one "
+              f"alert firing; bn_act launches {launches}; final weights and "
+              f"Adam state bitwise phase 5's ({card})", flush=True)
+        for r in perf:
+            _print_sample(f"telemetry cli sample at iter {r['iter']} "
+                          f"({r['top_executable']})", r, card)
+
+        # What health and a sample window add to one step, and the
+        # program's reading beside _profiled's, on the run's final state.
+        loader = MetaLearningDataLoader(cfg, device="cuda")
+        batches = loader.get_train_batches(builder.current_iter, 1)
+        batch = next(batches)
+        batches.close()
+        epoch = cfg.total_epochs - 1
+        phase = dict(second_order=cfg.use_second_order(epoch),
+                     use_msl=cfg.use_msl(epoch))
+        name = profiler.phase_card_name(**phase)
+        state = builder.state
+
+        def step(health=False):
+            return builder.train_step(state, batch, epoch, health=health,
+                                      **phase)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        step()
+        ms = {"off": [], "health": [], "window": []}
+        sampler = profiler.PerfSampler(1, device="cuda")
+        sampler.register_card(name, profiler.build_cost_card(
+            name, flops=profiler.count_flops(step)[1], kind=sampler.kind,
+            peaks=sampler.peaks))
+
+        def window():
+            sampler.start_window(0)
+            step()
+            if sampler.end_window(0, executable=name) is None:
+                raise AssertionError("telemetry: a sample window failed")
+        for kind in ("off", "health", "window", "window", "health", "off",
+                     "off", "health", "window"):
+            ms[kind].append(timed({"off": step,
+                                   "health": lambda: step(health=True),
+                                   "window": window}[kind]))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        runs = {k: [round(x, 1) for x in v] for k, v in ms.items()}
+        n_calls = 100_000
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            with profiler.region("inner_support_forward"):
+                pass
+        label_us = (time.perf_counter() - t0) / n_calls * 1e6
+        labels = cfg.effective_task_microbatches() * (
+            1 + 3 * k + (k if phase["use_msl"] else 1)) + 2
+        print(f"telemetry costs, one {name} step (median of 3, in turns): "
+              f"plain {med['off']:.1f} ms, health on {med['health']:.1f} ms "
+              f"(+{med['health'] - med['off']:.1f}), in a sample window "
+              f"with its attribution {med['window']:.1f} ms "
+              f"(+{med['window'] - med['off']:.1f}); runs "
+              f"{json.dumps(runs)}"
+              f"; record_function labels {labels} per step, "
+              f"{label_us:.3f} us each with the profiler off "
+              f"({labels * label_us / 1e3:.4f} ms per step) ({card})",
+              flush=True)
+        _profiled(f"telemetry, one {name} step", step, card)
+        _sampled(f"telemetry, one {name} step", name, step, card,
+                 bn_kernels=bn_per_step(name))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _epoch_seconds(logs: str) -> list:
+    """A run's epoch seconds from its ``summary_statistics.csv``."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
+        load_statistics)
+    return [round(float(v), 2)
+            for v in load_statistics(logs)["epoch_seconds"]]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1601,11 +1956,14 @@ def main() -> int:
     t1 = time.perf_counter()
     entry = check_bn_act(device_name, card)
     seconds = {"bn_act": round(time.perf_counter() - t1, 1)}
+    results = {}
     for name, phase in (("serve", serve_flagship), ("train", train_flagship),
                         ("cli", cli_flagship),
-                        ("backbones", other_backbones)):
+                        ("backbones", other_backbones),
+                        ("telemetry", lambda e, c: cli_telemetry(
+                            e, c, results["cli"]))):
         t1 = time.perf_counter()
-        phase(entry, card)
+        results[name] = phase(entry, card)
         seconds[name] = round(time.perf_counter() - t1, 1)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, build "
           f"included; seconds per phase {json.dumps(seconds)}", flush=True)

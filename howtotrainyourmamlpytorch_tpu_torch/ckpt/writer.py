@@ -6,7 +6,9 @@ Epoch saves and the preemption/rewind snapshot go through here; loads,
 bookkeeping queries and quarantine stay on the ``CheckpointManager``.
 With ``publish`` each committed epoch checkpoint is published to the
 model registry (``REGISTRY.json`` next to the checkpoints), as the JAX
-package does by default (``ckpt_publish``). The asynchronous
+package does by default (``ckpt_publish``). Saves and publishes count
+into the installed telemetry registry under the JAX names (:data:`SAVES`,
+:data:`SAVE_SECONDS`, :data:`PUBLISHED`). The asynchronous
 double-buffered writer (``ckpt_async=1``) is not ported yet.
 """
 
@@ -17,6 +19,13 @@ import warnings
 from typing import Optional
 
 from howtotrainyourmamlpytorch_tpu_torch.ckpt.registry import ModelRegistry
+from howtotrainyourmamlpytorch_tpu_torch.resilience import counter_inc
+
+SAVES = "ckpt/saves"
+SAVE_SECONDS = "ckpt/save_seconds"
+BLOCKED_SECONDS = "ckpt/blocked_seconds"
+SKIPPED_SAVES = "ckpt/skipped_saves"
+PUBLISHED = "ckpt/published"
 
 
 class CheckpointWriter:
@@ -43,6 +52,8 @@ class CheckpointWriter:
         self.last_save_bytes = self.manager.save(state, epoch, current_iter,
                                                  val_acc)
         self.last_save_seconds = time.perf_counter() - t0
+        counter_inc(SAVES)
+        counter_inc(SAVE_SECONDS, self.last_save_seconds)
         self._maybe_publish(epoch, current_iter, val_acc)
 
     def save_latest(self, state, current_iter: int) -> None:
@@ -64,6 +75,7 @@ class CheckpointWriter:
                         iteration=int(current_iter), val_acc=float(val_acc),
                         fingerprint=self.manager.fingerprint(int(epoch)))
             reg.retire_missing(self.manager.directory)
+            counter_inc(PUBLISHED)
         except Exception as e:  # noqa: BLE001
             warnings.warn(f"model-registry publish failed for epoch "
                           f"{epoch} ({type(e).__name__}: {e}); serving "

@@ -17,15 +17,21 @@ fixed streams (``val_seed``; test ``val_seed + 104729``) with indices
 ``[0, num_evaluation_tasks)`` padded up to a full last batch, so
 evaluation episodes are identical every epoch and across runs.
 
+Telemetry: the train feed is metered by :attr:`feed`
+(``telemetry/instruments.py § FeedStallMeter``): time the consumer spends
+blocked on the next batch against time it spends in its step; with a
+registry, skipped episodes count ``data/corrupt_episodes``.
+
 Not ported yet: mesh placement and multi-host assembly (ROADMAP.md,
-Queue 1: parallel/mesh slice), the elastic pad, and the watchdog, fault
-hooks and feed-stall meter (resilience/telemetry slice).
+Queue 1: parallel/mesh slice), the elastic pad, and the watchdog and
+fault hooks (resilience/ckpt slice).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 import warnings
 from typing import Iterator, Optional
 
@@ -38,6 +44,8 @@ from howtotrainyourmamlpytorch_tpu_torch.data.sources import build_source
 from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
                                                         resolve_device)
 from howtotrainyourmamlpytorch_tpu_torch.meta.inner import Episode
+from howtotrainyourmamlpytorch_tpu_torch.telemetry.instruments import (
+    FeedStallMeter)
 
 _STOP = object()
 
@@ -57,9 +65,12 @@ _TEST_SEED_OFFSET = 104729
 
 class MetaLearningDataLoader:
     """Per-split samplers yielding meta-batches as tensors on ``device``
-    (the card by default; ``device="cpu"`` must be asked for)."""
+    (the card by default; ``device="cpu"`` must be asked for).
+    ``registry`` (a ``telemetry.MetricsRegistry``) receives the loader's
+    counters."""
 
-    def __init__(self, cfg: MAMLConfig, device: DeviceLike = None):
+    def __init__(self, cfg: MAMLConfig, device: DeviceLike = None,
+                 registry=None):
         if cfg.elastic_pad_tasks > 0:
             raise NotImplementedError(
                 "elastic_pad_tasks > 0 (elastic pad-and-mask) is not ported "
@@ -69,6 +80,10 @@ class MetaLearningDataLoader:
         self._samplers = {}
         self._train_salt = 0
         self._corrupt_warned = False
+        self.registry = registry
+        # Cumulative over the loader's life, train split only: eval
+        # sweeps are not the training hot path.
+        self.feed = FeedStallMeter()
 
     def set_train_salt(self, salt: int) -> None:
         """Shift the train episode stream (divergence rewinds); the
@@ -99,6 +114,8 @@ class MetaLearningDataLoader:
                 return sampler.sample(j)
             except Exception as e:
                 last = e
+                if self.registry is not None:
+                    self.registry.counter("data/corrupt_episodes").inc()
                 if not self._corrupt_warned:
                     self._corrupt_warned = True
                     warnings.warn(
@@ -166,11 +183,17 @@ class MetaLearningDataLoader:
                 put_bounded(e)
             put_bounded(_STOP)
 
+        # Time blocked in q.get() is input-pipeline stall; time inside
+        # ``yield`` is the consumer's step.
+        meter = self.feed if split == "train" else None
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         try:
             while True:
+                t0 = time.perf_counter()
                 item = q.get()
+                if meter is not None:
+                    meter.record_wait(time.perf_counter() - t0)
                 if item is _STOP:
                     break
                 if isinstance(item, Exception):
@@ -184,7 +207,10 @@ class MetaLearningDataLoader:
                     current.wait_event(event)
                     for f in batch:
                         f.record_stream(current)
+                t1 = time.perf_counter()
                 yield batch
+                if meter is not None:
+                    meter.record_dispatch(time.perf_counter() - t1)
         finally:
             # Consumer abandoned (error or early break): stop the worker
             # instead of letting it produce the rest of the epoch.

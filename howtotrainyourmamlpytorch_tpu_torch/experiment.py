@@ -24,15 +24,30 @@ On the card:
   ``{"preempted_at_iter": ...}`` (the CLI exits 75); a second signal while
   the first drains exits 75 at once.
 
+* ``run_experiment`` runs under the entry point's numerics policy
+  (``device.numerics_policy``): f32 configs with TF32 off, cuDNN
+  deterministic, the previous flags restored afterwards.
+
+Telemetry (``telemetry/``), the JAX package's rows at the same loop
+points: a metrics registry (also the resilience counters' registry)
+flushed to ``events.jsonl`` and ``logs/metrics.prom`` per epoch, at a
+preemption and after the test protocol; per epoch one ``telemetry`` row
+(step-time quantiles, feed stall, device memory) and one ``heartbeat``
+row, and ``logs/trace.json``; alert rules (``alert_rules_path``);
+training-health rows (``health_metrics_every_n_steps``, at dispatch-sync
+points); the perf sampler (``profile_every_n_steps``: ``perf_profile``
+rows, ``logs/PROFILE.json``); a device trace of epoch ``profile_epoch``
+(``profile_dir``); TensorBoard scalars (``use_tensorboard``). Off, each
+costs one ``None`` check where it would act.
+
 Checkpoints, ``state.json``, ``MANIFEST.json``, ``REGISTRY.json`` and the
 CSVs are the JAX package's formats: either package resumes, evaluates or
 serves the other's run. Not ported yet (each raises when set away from its
 default, naming its ROADMAP.md Queue 1 item): the mesh, the AOT store and
-compile cache, alert rules, the pod fault domain and elastic mode, fault
-injection, the perf sampler and device traces, TensorBoard, the async
-checkpoint writer and the training-health metrics. The watchdog and flight
-recorder (on by default in the JAX package) are not ported either: the
-builder says so once at start.
+compile cache, the pod fault domain and elastic mode, fault injection and
+the async checkpoint writer. The watchdog and flight recorder (on by
+default in the JAX package) are not ported either: the builder says so
+once at start.
 """
 
 from __future__ import annotations
@@ -48,25 +63,36 @@ from typing import Any, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from howtotrainyourmamlpytorch_tpu_torch.ckpt.writer import CheckpointWriter
+from howtotrainyourmamlpytorch_tpu_torch import resilience
+from howtotrainyourmamlpytorch_tpu_torch.ckpt import writer as ckpt_writer
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.data.loader import (
     MetaLearningDataLoader)
 from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
+                                                        numerics_policy,
                                                         resolve_device,
                                                         synchronize)
+from howtotrainyourmamlpytorch_tpu_torch.meta.inner import (
+    adapted_param_counts)
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
     MetaTrainState, init_train_state, make_eval_step, make_train_step,
     migrate_lslr_rows, reconcile_loaded_shapes, state_leaf_shapes)
 from howtotrainyourmamlpytorch_tpu_torch.models import make_model
 from howtotrainyourmamlpytorch_tpu_torch.resilience import (EXIT_PREEMPTED,
                                                             DivergenceGuard)
+from howtotrainyourmamlpytorch_tpu_torch.telemetry import (
+    FeedStallMeter, MetricsRegistry, device_memory_stats, emit_heartbeat)
+from howtotrainyourmamlpytorch_tpu_torch.telemetry import alerts as alerts_mod
+from howtotrainyourmamlpytorch_tpu_torch.telemetry import health as health_mod
+from howtotrainyourmamlpytorch_tpu_torch.telemetry import (
+    profiler as profiler_mod)
+from howtotrainyourmamlpytorch_tpu_torch.telemetry import trace as trace_mod
 from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import (
     LATEST, CheckpointManager)
 from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
     build_experiment_folder, save_statistics, save_to_json)
-from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import (JsonlLogger,
-                                                               StepTimer)
+from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import (
+    JsonlLogger, StepTimer, profile_trace, read_jsonl)
 
 FAULTS_ENV = "MAML_FAULTS"
 WATCHDOG_FIELDS = ("watchdog_step_timeout_s", "watchdog_feed_timeout_s",
@@ -88,8 +114,6 @@ def refuse_unported_knobs(cfg: MAMLConfig) -> None:
         (bool(cfg.compilation_cache_dir),
          "compilation_cache_dir (the persistent compile cache)",
          "AOT/compile-cache slice"),
-        (bool(cfg.alert_rules_path), "alert_rules_path (alert rules)",
-         "telemetry slice"),
         (cfg.cluster_collective_timeout_s > 0,
          "cluster_collective_timeout_s > 0 (the pod fault domain)",
          "parallel/mesh slice"),
@@ -98,13 +122,6 @@ def refuse_unported_knobs(cfg: MAMLConfig) -> None:
         (bool(cfg.fault_spec or os.environ.get(FAULTS_ENV)),
          f"fault_spec / {FAULTS_ENV} (fault injection)",
          "resilience/ckpt slice"),
-        (cfg.profile_every_n_steps > 0,
-         "profile_every_n_steps > 0 (the sampled device-time profiler)",
-         "telemetry slice"),
-        (bool(cfg.profile_dir), "profile_dir (device traces)",
-         "telemetry slice"),
-        (bool(cfg.use_tensorboard), "use_tensorboard (TensorBoard scalars)",
-         "telemetry slice"),
     )
     for unported, what, item in checks:
         if unported:
@@ -120,6 +137,11 @@ class ExperimentBuilder:
     def __init__(self, cfg: MAMLConfig, device: DeviceLike = None):
         refuse_unported_knobs(cfg)
         self.device = resolve_device(device)
+        # Telemetry registry first: storage retries and checkpoint saves
+        # below count into it (the last constructed builder's registry
+        # is the process's).
+        self.registry = MetricsRegistry()
+        resilience.set_registry(self.registry)
         self.paths = build_experiment_folder(cfg.experiment_root,
                                              cfg.experiment_name)
         eff_mb = cfg.effective_task_microbatches()
@@ -138,15 +160,43 @@ class ExperimentBuilder:
         self.model_init, self.model_apply = make_model(cfg)
         self.train_step = make_train_step(cfg, self.model_apply)
         self.eval_step = make_eval_step(cfg, self.model_apply)
-        self.data = MetaLearningDataLoader(cfg, device=self.device)
+        self.data = MetaLearningDataLoader(cfg, device=self.device,
+                                           registry=self.registry)
         self.ckpt = CheckpointManager(self.paths["saved_models"],
                                       max_to_keep=cfg.max_models_to_save)
-        self.ckpt_writer = CheckpointWriter(
+        self.ckpt_writer = ckpt_writer.CheckpointWriter(
             self.ckpt, async_saves=bool(cfg.ckpt_async),
             publish=cfg.ckpt_publish)
         # Size-capped at 64 MiB: one rotation into events.jsonl.1.
         self.jsonl = JsonlLogger(f"{self.paths['logs']}/events.jsonl",
                                  max_bytes=64 * 1024 * 1024)
+        # Alert rules (telemetry/alerts.py), evaluated at the registry
+        # flush points only; None when alert_rules_path is unset.
+        self._alerts: Optional[alerts_mod.AlertEvaluator] = None
+        self._last_heartbeat_ts: Optional[float] = None
+        if cfg.alert_rules_path:
+            self._alerts = alerts_mod.AlertEvaluator(
+                alerts_mod.load_rules(cfg.alert_rules_path), source="train",
+                snapshot_path=f"{self.paths['logs']}/ALERTS.json")
+            # A scrape before the first evaluation reads 0 firing.
+            self.registry.gauge(alerts_mod.FIRING_GAUGE).set(0.0)
+        self._feed_prev: Optional[Dict[str, float]] = None
+        self._tb = None             # lazy SummaryWriter (_finish_epoch)
+        self._tb_disabled = False   # set if the writer cannot be made
+        # Training health (telemetry/health.py): the step computes the
+        # diagnostics only on the dispatch-sync iterations this cadence
+        # publishes. The grad-norm early warning has its own guard, so
+        # it warns with rewinds off too.
+        self._health_every = cfg.health_metrics_every_n_steps
+        self._last_health_iter: Optional[int] = None
+        self._norm_guard = (DivergenceGuard(
+            patience=1, grad_norm_factor=cfg.health_grad_norm_warn_factor)
+            if self._health_every > 0 else None)
+        # Perf sampler (telemetry/profiler.py): made in run_experiment
+        # iff profile_every_n_steps > 0. Phase keys whose first step
+        # this session has run: that step counts the phase's FLOPs.
+        self._perf: Optional[profiler_mod.PerfSampler] = None
+        self._phases_run: set = set()
         self.state = init_train_state(cfg, self.model_init, seed=cfg.seed,
                                       device=self.device)
         self.current_iter = 0
@@ -215,6 +265,8 @@ class ExperimentBuilder:
         iters_left = (cfg.total_iter_per_epoch
                       - self.current_iter % cfg.total_iter_per_epoch)
         second_order, use_msl = cfg.use_second_order(epoch), cfg.use_msl(epoch)
+        phase_key = (second_order, use_msl)
+        card_name = profiler_mod.phase_card_name(*phase_key)
         live = cfg.live_progress and cfg.dispatch_sync_every > 0
         live_tty = live and getattr(sys.stdout, "isatty", lambda: False)()
         live_samples: List[tuple] = []
@@ -223,12 +275,58 @@ class ExperimentBuilder:
         timer = StepTimer()
         t0 = time.time()
         timer.start()
+        # The device trace covers the epoch's first profile_num_steps real
+        # steps (no extra step; training is bitwise the same).
+        prof = None
+        if cfg.profile_dir and epoch == cfg.profile_epoch:
+            prof = profile_trace(cfg.profile_dir, f"epoch{epoch}")
+            prof.__enter__()
         batches = self.data.get_train_batches(self.current_iter, iters_left)
         try:
             for i, batch in enumerate(batches):
-                self.state, metrics = self.train_step(
+                if prof is not None and i == cfg.profile_num_steps:
+                    prof.__exit__(None, None, None)
+                    prof = None
+                sync_point = bool(cfg.dispatch_sync_every and (
+                    (i + 1) % cfg.dispatch_sync_every == 0))
+                # Health is computed only on the iterations it is
+                # published on: dispatch-sync points on its cadence.
+                want_health = bool(
+                    self._health_every and sync_point
+                    and (self._last_health_iter is None
+                         or self.current_iter + 1 - self._last_health_iter
+                         >= self._health_every))
+                first_call = phase_key not in self._phases_run
+                # Perf sampler: one step under the profiler on its
+                # cadence, never a phase's first step (that one counts
+                # the phase's FLOPs) nor while the device trace records.
+                sampling = (self._perf is not None and not first_call
+                            and prof is None
+                            and self._perf.due(self.current_iter)
+                            and self._perf.start_window(self.current_iter))
+                step = lambda: self.train_step(
                     self.state, batch, epoch, second_order=second_order,
-                    use_msl=use_msl)
+                    use_msl=use_msl, health=want_health)
+                try:
+                    if first_call and self._perf is not None:
+                        (self.state, metrics), flops = (
+                            profiler_mod.count_flops(step))
+                        self._perf.register_card(
+                            card_name, profiler_mod.build_cost_card(
+                                card_name, flops=flops,
+                                kind=self._perf.kind,
+                                peaks=self._perf.peaks))
+                    else:
+                        self.state, metrics = step()
+                except BaseException:
+                    # The process-wide profiler must not stay on.
+                    if sampling:
+                        self._perf.abort_window()
+                    raise
+                self._phases_run.add(phase_key)
+                if sampling:
+                    self._perf.end_window(self.current_iter, epoch=epoch,
+                                          executable=card_name)
                 # Stays on the device until the epoch's end.
                 metrics_acc.append((metrics.loss.detach(),
                                     metrics.accuracy.detach(),
@@ -236,12 +334,13 @@ class ExperimentBuilder:
                 meta_lr = metrics.learning_rate
                 self.current_iter += 1
                 timer.tick()
-                if (cfg.dispatch_sync_every
-                        and (i + 1) % cfg.dispatch_sync_every == 0):
+                if sync_point:
                     # The one fetch between epoch ends: it bounds how far
                     # the host runs ahead, so a signal takes effect within
                     # dispatch_sync_every iterations.
                     loss_now = float(metrics.loss)
+                    if metrics.health is not None:
+                        self._observe_health(metrics.health, epoch)
                     if live:
                         live_samples.append((loss_now,
                                              float(metrics.accuracy)))
@@ -265,6 +364,8 @@ class ExperimentBuilder:
         finally:
             # Stops the loader's prefetch thread on a break or an error.
             batches.close()
+            if prof is not None:
+                prof.__exit__(None, None, None)
         synchronize(self.device)
         if live_tty and live_samples:
             print("\r\x1b[K", end="")  # clear the in-place progress line
@@ -275,6 +376,9 @@ class ExperimentBuilder:
             # exactly this iteration with the same batch stream.
             self.ckpt_writer.save_latest(self.state, self.current_iter)
             self.jsonl.log("preempt_checkpoint", iter=self.current_iter)
+            # Final registry snapshot: counters since the last epoch
+            # flush must not die with the process.
+            self._flush_registry(phase="preempt")
             print(f"preempted: saved latest checkpoint at iter "
                   f"{self.current_iter}")
             return None
@@ -297,7 +401,90 @@ class ExperimentBuilder:
         self.jsonl.log("train_epoch", epoch=epoch, iter=self.current_iter,
                        second_order=second_order, use_msl=use_msl, **stats,
                        **{f"dispatch_{k}": v for k, v in tsum.items()})
+        self._emit_epoch_telemetry(epoch, timer, tsum, stats)
         return stats
+
+    def _observe_health(self, health: Dict[str, torch.Tensor],
+                        epoch: int) -> None:
+        """Fetch one health snapshot and publish it (``health/*`` gauges,
+        one ``health`` row), then feed the outer-grad norm to the early
+        warning."""
+        self._last_health_iter = self.current_iter
+        fetched = health_mod.fetch_health(health)
+        health_mod.publish_health(self.registry, self.jsonl, fetched,
+                                  iteration=self.current_iter, epoch=epoch)
+        grad_norm = float(fetched["grad_norm"])
+        if (self._norm_guard is not None
+                and self._norm_guard.observe_grad_norm(grad_norm)):
+            self.jsonl.log(health_mod.GRAD_NORM_WARN_EVENT,
+                           iter=self.current_iter, epoch=epoch,
+                           grad_norm=grad_norm)
+            print(f"health: outer-grad norm warning at iter "
+                  f"{self.current_iter} (norm {grad_norm:g})", flush=True)
+
+    def _emit_epoch_telemetry(self, epoch: int, timer: StepTimer,
+                              tsum: Dict[str, float],
+                              stats: Dict[str, float]) -> None:
+        """Per-epoch rollup: registry update, one ``telemetry`` row and one
+        ``heartbeat`` row. Device memory is None on the CPU and eager
+        PyTorch compiles nothing, so those read "unavailable" in the
+        report, never a fake zero."""
+        reg = self.registry
+        for key, value in stats.items():
+            reg.gauge(f"train/{key}").set(value)
+        hist = reg.histogram("step_seconds")
+        for dt in timer.durations:
+            hist.observe(dt)
+        # Per-epoch delta of the loader's cumulative feed meter.
+        feed_now = self.data.feed.snapshot()
+        feed = FeedStallMeter.delta(feed_now, self._feed_prev)
+        self._feed_prev = feed_now
+        reg.gauge("feed/stall_frac").set(feed["feed_stall_frac"])
+        mem = device_memory_stats(self.device)
+        if mem is not None:
+            reg.gauge("memory/live_bytes_total").set(
+                mem["live_bytes_total"])
+            reg.gauge("memory/peak_bytes_max_device").set(
+                mem["peak_bytes_max_device"])
+        self.jsonl.log(
+            "telemetry", epoch=epoch, iter=self.current_iter,
+            step_seconds_p50=tsum.get("p50_step_seconds"),
+            step_seconds_p95=tsum.get("p95_step_seconds"),
+            step_seconds_mean=tsum.get("mean_step_seconds"),
+            meta_tasks_per_sec_per_chip=stats.get(
+                "meta_tasks_per_sec_per_chip"),
+            compile_count_total=None, compile_seconds_total=None,
+            feed_wait_seconds=feed["feed_wait_seconds"],
+            feed_dispatch_seconds=feed["feed_dispatch_seconds"],
+            feed_stall_frac=feed["feed_stall_frac"],
+            memory=mem)
+        emit_heartbeat(self.jsonl, epoch=epoch, iteration=self.current_iter,
+                       local_mean_step_seconds=tsum.get(
+                           "mean_step_seconds", 0.0),
+                       **({"alerts_firing": self._alerts.firing_summary()}
+                          if self._alerts is not None else {}))
+        self._last_heartbeat_ts = time.time()
+
+    def _evaluate_alerts(self) -> None:
+        """One alert-rule pass over the registry snapshot (no-op without
+        rules), at the registry flush points only. The ``heartbeat``
+        absence signal is the age of this run's last heartbeat row."""
+        if self._alerts is None:
+            return
+        now = time.time()
+        ages: Dict[str, float] = {}
+        if self._last_heartbeat_ts is not None:
+            ages["heartbeat"] = now - self._last_heartbeat_ts
+        self._alerts.evaluate(now=now, snapshot=self.registry.snapshot(),
+                              ages=ages, jsonl=self.jsonl,
+                              registry=self.registry)
+
+    def _flush_registry(self, **extra) -> None:
+        """Alert pass, then the registry as one ``metrics`` row and
+        ``logs/metrics.prom``."""
+        self._evaluate_alerts()
+        self.registry.flush_jsonl(self.jsonl, **extra)
+        self.registry.write_prometheus(f"{self.paths['logs']}/metrics.prom")
 
     def _eval_batches(self, split: str) -> Iterable:
         """The split's fixed evaluation batches, device-cached after the
@@ -337,18 +524,64 @@ class ExperimentBuilder:
 
     # ------------------------------------------------------------------
     def run_experiment(self) -> Dict[str, Any]:
-        if any(getattr(self.cfg, f) > 0 for f in WATCHDOG_FIELDS):
+        """Train, validate and test under the entry point's numerics
+        policy (TF32 off for f32 configs, cuDNN deterministic; restored
+        on return)."""
+        cfg = self.cfg
+        if any(getattr(cfg, f) > 0 for f in WATCHDOG_FIELDS):
             print("watchdog: not ported yet (ROADMAP.md, Queue 1: "
                   "resilience/ckpt slice); this run has no hang detection "
                   "and writes no flight recorder", flush=True)
-        return self._run_experiment()
+        if cfg.profile_every_n_steps > 0:
+            self._perf = profiler_mod.PerfSampler(
+                cfg.profile_every_n_steps, registry=self.registry,
+                jsonl=self.jsonl, device=self.device)
+        try:
+            with numerics_policy(cfg.compute_dtype, deterministic=True):
+                return self._run_experiment()
+        finally:
+            if self._perf is not None:
+                self._write_profile_json()
+            if self._tb is not None:
+                # Release the writer's thread and file handle.
+                self._tb.close()
+                self._tb = None
+
+    def _write_profile_json(self) -> None:
+        """Persist the phase cost cards as ``logs/PROFILE.json`` (the JAX
+        package's schema). Best-effort: observability only."""
+        try:
+            profiler_mod.merge_profile(
+                os.path.join(self.paths["logs"], profiler_mod.PROFILE_FILE),
+                list(self._perf.cards.values()),
+                device_kind=self._perf.kind, peaks=self._perf.peaks)
+        except OSError as e:
+            logging.getLogger(__name__).warning(
+                "PROFILE.json write failed (%s: %s)", type(e).__name__, e)
 
     def _run_experiment(self) -> Dict[str, Any]:
         cfg = self.cfg
+        # Which algorithm this run trains and how many parameters its
+        # inner loop adapts (the report's "algo" section).
+        adapted, total = adapted_param_counts(cfg, self.state.params)
+        self.registry.gauge("algo/adapted_params").set(adapted)
+        self.registry.gauge("algo/total_params").set(total)
+        self.jsonl.log("algo", meta_algorithm=cfg.meta_algorithm,
+                       task_type=cfg.task_type, adapted_params=adapted,
+                       total_params=total)
         if cfg.evaluate_on_test_set_only:
             return self.run_test_protocol()
         total_iters = cfg.total_epochs * cfg.total_iter_per_epoch
         epochs_this_session = 0
+        # Eager registration: every metrics row carries these counters,
+        # so a report shows "0 rewinds", not a missing section.
+        for name in ("resilience/rewinds", "resilience/io_retries",
+                     "resilience/faults_injected", ckpt_writer.SAVES,
+                     ckpt_writer.SAVE_SECONDS, ckpt_writer.BLOCKED_SECONDS,
+                     ckpt_writer.SKIPPED_SAVES, "ckpt/gc_deletes"):
+            self.registry.counter(name)
+        if self._health_every:
+            self.registry.counter(health_mod.GRAD_NORM_WARN_COUNTER)
         # Save-on-signal around the training loop (main thread only).
         prev_handlers = []
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -427,6 +660,12 @@ class ExperimentBuilder:
         # 'latest' still holds the abandoned window's weights.
         self.ckpt_writer.save_latest(self.state, self.current_iter)
         self.data.set_train_salt(rewinds)
+        # Post-rewind iterations restart below the poisoned window: the
+        # health cadence and the warn guard's norm history restart too.
+        self._last_health_iter = None
+        if self._norm_guard is not None:
+            self._norm_guard.reset()
+        self.registry.counter("resilience/rewinds").inc()
         self.jsonl.log("rewind", epoch=tag, iter=self.current_iter,
                        rewinds=rewinds)
         print(f"divergence guard: rewound to epoch {tag} checkpoint (iter "
@@ -443,6 +682,15 @@ class ExperimentBuilder:
                        val_loss=val_stats["loss"],
                        val_accuracy=val_stats["accuracy"],
                        seconds=val_stats["seconds"])
+        self.registry.gauge("val/loss").set(val_stats["loss"])
+        self.registry.gauge("val/accuracy").set(val_stats["accuracy"])
+        self.registry.gauge("progress/epoch").set(epoch)
+        # Alert transitions land just before the metrics row that
+        # triggered them.
+        self._flush_registry(epoch=epoch)
+        self._flush_timeline()
+        if self.cfg.use_tensorboard and not self._tb_disabled:
+            self._tensorboard_scalars(row, epoch)
         self.ckpt_writer.save(self.state, epoch, self.current_iter,
                               val_stats["accuracy"])
         self.jsonl.log("checkpoint", epoch=epoch, iter=self.current_iter,
@@ -455,6 +703,41 @@ class ExperimentBuilder:
               f"acc {val_stats['accuracy']:.4f} | "
               f"{train_stats['meta_tasks_per_sec']:.1f} tasks/s | "
               f"lr {train_stats['meta_lr']:.2e}", flush=True)
+
+    def _flush_timeline(self) -> None:
+        """``logs/trace.json``: a Chrome trace of the tail of the run's
+        events (the flight-ring layer stays empty until the resilience
+        slice). Best-effort: a timeline never stops training."""
+        try:
+            logs = self.paths["logs"]
+            events = (read_jsonl(self.jsonl.path, tail=4096)
+                      if os.path.exists(self.jsonl.path) else None)
+            trace_mod.write_trace(os.path.join(logs, "trace.json"),
+                                  events=events)
+        except (OSError, ValueError) as e:
+            logging.getLogger(__name__).warning(
+                "timeline flush failed (%s: %s)", type(e).__name__, e)
+
+    def _tensorboard_scalars(self, row: Dict[str, Any], epoch: int) -> None:
+        """The epoch's CSV row as TensorBoard scalars under
+        ``logs/tensorboard``; the writer is made at the first write, and
+        if it cannot be (tensorboardX missing), the run warns once and
+        goes on with CSV/JSONL only, as the JAX package does."""
+        if self._tb is None:
+            try:
+                from tensorboardX import SummaryWriter
+                self._tb = SummaryWriter(f"{self.paths['logs']}/tensorboard")
+            except Exception as e:  # noqa: BLE001 — optional feature
+                warnings.warn(
+                    f"use_tensorboard=True but the SummaryWriter could not "
+                    f"be created ({type(e).__name__}: {e}); falling back to "
+                    f"CSV/JSONL only", stacklevel=2)
+                self._tb_disabled = True
+                return
+        for key, value in row.items():
+            if key != "epoch":
+                self._tb.add_scalar(key, float(value), epoch)
+        self._tb.flush()
 
     # ------------------------------------------------------------------
     def run_test_protocol(self) -> Dict[str, Any]:
@@ -529,6 +812,12 @@ class ExperimentBuilder:
             k: v for k, v in result.items() if k != "per_model_accuracy"},
             per_model_accuracy=per_model_acc,
             seconds=time.perf_counter() - t0)
+        # The final snapshot lands in metrics.prom and events.jsonl.
+        self.registry.gauge("test/accuracy_mean").set(
+            result["test_accuracy_mean"])
+        self.registry.gauge("test/accuracy_std").set(
+            result["test_accuracy_std"])
+        self._flush_registry(phase="test_protocol")
         score = (f"mse {result['test_mse_mean']:.4f}"
                  if cfg.task_type == "regression"
                  else f"{result['test_accuracy_mean']:.4f}")

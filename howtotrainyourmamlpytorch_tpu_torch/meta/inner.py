@@ -38,6 +38,11 @@ reentry, and only where an outer backward will run:
   as ``jax.checkpoint(policy=nothing_saveable)``; under first order each
   target forward is one segment.
 * ``'conv_outs'`` / ``'dots'`` raise ``NotImplementedError``.
+
+The support forward, inner gradient, LSLR update and target forwards run
+under the JAX package's ``named_scope`` labels as ``record_function``
+ranges (``telemetry/profiler.py § region``), entered only while a
+profiler records.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.meta.algos import HEAD_PARAM_KEYS
 from howtotrainyourmamlpytorch_tpu_torch.ops.losses import task_loss_fns
+from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import region
 from howtotrainyourmamlpytorch_tpu_torch.tree import (stack_tasks,
                                                       tree_leaves, tree_map)
 
@@ -187,18 +193,22 @@ def support_adapt_step(cfg: MAMLConfig, apply_fn, slow: Params,
         lambda w: w if w.requires_grad else w.detach().requires_grad_(True),
         fast)
     with torch.enable_grad():
-        logits, bn = apply_fn(merge_fast_slow(leaves, slow), bn, support_x,
-                              step, True, plain=plain)
-        if support_w is None:
-            task_loss = loss_fn(logits, support_y)
-        else:
-            task_loss = weighted_loss_fn(logits, support_y, support_w)
-        grads_flat = torch.autograd.grad(task_loss.sum(),
-                                         tree_leaves(leaves),
-                                         create_graph=second_order)
+        with region("inner_support_forward"):
+            logits, bn = apply_fn(merge_fast_slow(leaves, slow), bn,
+                                  support_x, step, True, plain=plain)
+            if support_w is None:
+                task_loss = loss_fn(logits, support_y)
+            else:
+                task_loss = weighted_loss_fn(logits, support_y, support_w)
+        with region("inner_support_grad"):
+            grads_flat = torch.autograd.grad(task_loss.sum(),
+                                             tree_leaves(leaves),
+                                             create_graph=second_order)
     it = iter(grads_flat)  # tree_leaves and tree_map share one order
     grads = tree_map(lambda _: next(it), fast)
-    return _lslr_update(fast, grads, lslr, step), bn, task_loss.detach()
+    with region("inner_lslr_update"):
+        fast = _lslr_update(fast, grads, lslr, step)
+    return fast, bn, task_loss.detach()
 
 
 def _needs_outer_graph(*trees) -> bool:
@@ -251,8 +261,10 @@ def task_forward(cfg: MAMLConfig, apply_fn, params: Params, lslr: Params,
             fast, bn, step, second_order=second_order, plain=plain)
         if not use_msl:
             return fast, bn, s_loss, None, None
-        t_logits, bn = target_forward(fast, bn, step)
-        return fast, bn, s_loss, loss_fn(t_logits, episode.target_y), t_logits
+        with region("inner_msl_target_forward"):
+            t_logits, bn = target_forward(fast, bn, step)
+            t_loss = loss_fn(t_logits, episode.target_y)
+        return fast, bn, s_loss, t_loss, t_logits
 
     s_losses, t_losses = [], []
     for step in range(num_steps):
@@ -270,8 +282,9 @@ def task_forward(cfg: MAMLConfig, apply_fn, params: Params, lslr: Params,
         loss = (msl_weights[:num_steps] * per_step_t).sum(1)
         final_logits = t_logits
     else:
-        final_logits, bn = target_forward(fast, bn, num_steps - 1)
-        loss = loss_fn(final_logits, episode.target_y)
+        with region("final_target_forward"):
+            final_logits, bn = target_forward(fast, bn, num_steps - 1)
+            loss = loss_fn(final_logits, episode.target_y)
         per_step_t = torch.zeros(num_tasks, num_steps,
                                  device=final_logits.device)
     per_step_s = torch.stack(s_losses, dim=1)
@@ -306,9 +319,10 @@ def reptile_task_forward(cfg: MAMLConfig, apply_fn, params: Params,
                 episode.support_y, fast, bn, step, second_order=False,
                 plain=plain)
             s_losses.append(s_loss)
-        final_logits, bn = apply_fn(merge_fast_slow(fast, slow), bn,
-                                    episode.target_x, num_steps - 1, True,
-                                    plain=plain)
+        with region("final_target_forward"):
+            final_logits, bn = apply_fn(merge_fast_slow(fast, slow), bn,
+                                        episode.target_x, num_steps - 1,
+                                        True, plain=plain)
         delta = tree_map(lambda a, b: a - b, stack_tasks(fast0, num_tasks),
                          fast)
     per_step_s = torch.stack(s_losses, dim=1)

@@ -20,13 +20,17 @@ count, so the JAX package's optimizer state carries over
 (``convert.state_from_jax``). The meta-LR and the bias corrections are
 computed on the host in float32, as the JAX package computes them on the
 device.
+
+``train_step(..., health=True)`` also returns the training-health
+diagnostics (``telemetry/health.py``) in ``StepMetrics.health``; the
+weights are bitwise those of a step without them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +42,8 @@ from howtotrainyourmamlpytorch_tpu_torch.meta.inner import (
     Episode, lslr_init, per_step_loss_importance, reptile_task_forward,
     split_fast_slow, task_forward)
 from howtotrainyourmamlpytorch_tpu_torch.ops.episode import normalize_episode
+from howtotrainyourmamlpytorch_tpu_torch.telemetry import health as health_mod
+from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import region
 from howtotrainyourmamlpytorch_tpu_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -239,6 +245,9 @@ class StepMetrics(NamedTuple):
     accuracy: torch.Tensor      # final-step target accuracy, mean
     support_loss: torch.Tensor  # mean support loss over inner steps
     learning_rate: float        # the meta-LR this step applied
+    # Training-health diagnostics (telemetry/health.py): a dict of small
+    # tensors on the steps run with health=True, else None.
+    health: Optional[Dict[str, torch.Tensor]] = None
 
 
 def _chunks(batch: Episode, num_micro: int):
@@ -255,35 +264,21 @@ def _add(acc, value):
     return value if acc is None else tree_map(torch.add, acc, value)
 
 
-def make_meta_gradients(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
-    """Build ``meta_gradients(state, batch, epoch, *, second_order,
-    use_msl, plain=False) -> (loss, accuracy, support_loss, bn_state,
-    grads)``: the batch's meta-loss and its gradient with respect to
-    ``{"params", "lslr"}``, before any zeroing, clamp or update.
-
-    The batch (leading task axis, uint8 or f32 images) runs in
-    ``cfg.effective_task_microbatches()`` equal chunks, one task-batched
-    forward and one backward each; every output is the sum of the chunk
-    means divided by the chunk count, the JAX package's accumulation.
-    ``bn_state`` is the task mean of the post-task norm states. Under
-    ``meta_algorithm='reptile'`` (outer ``'interpolate'``) the gradient
-    of each fast leaf is the task mean of ``θ − φ`` and every other leaf
-    gets zeros."""
+def _make_accumulation(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
+    """The chunked forward/backward of :func:`make_meta_gradients`,
+    returning its sums as a dict (``loss``, ``acc``, ``s_loss``, ``bn``,
+    ``grads``; with ``per_step``, also the per-inner-step support and
+    target losses ``ps_s``, ``ps_t``, each the task mean)."""
     num_steps = cfg.number_of_training_steps_per_iter
     interpolate = cfg.algo.outer == "interpolate"
-    if cfg.health_metrics_every_n_steps > 0:
-        raise NotImplementedError(
-            "health_metrics_every_n_steps > 0 (in-step training-health "
-            "metrics) is not ported yet (ROADMAP.md, Queue 1: telemetry "
-            "slice)")
     if cfg.elastic_pad_tasks > 0:
         raise NotImplementedError(
             "elastic_pad_tasks > 0 (elastic pad-and-mask) is not ported "
             "yet (ROADMAP.md, Queue 1: parallel/mesh slice)")
 
-    def meta_gradients(state: MetaTrainState, batch: Episode, epoch, *,
-                       second_order: bool, use_msl: bool,
-                       plain: bool = False):
+    def accumulate(state: MetaTrainState, batch: Episode, epoch, *,
+                   second_order: bool, use_msl: bool, plain: bool = False,
+                   per_step: bool = False):
         batch = normalize_episode(cfg, batch)
         device = batch.support_x.device
         msl_w = (per_step_loss_importance(cfg, epoch, device=device)
@@ -299,9 +294,11 @@ def make_meta_gradients(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
         totals = None
         for chunk in _chunks(batch, num_micro):
             if interpolate:
-                res, deltas = reptile_task_forward(
-                    cfg, apply_fn, state.params, state.lslr,
-                    state.bn_state, chunk, num_steps=num_steps, plain=plain)
+                with region("task_adapt"):
+                    res, deltas = reptile_task_forward(
+                        cfg, apply_fn, state.params, state.lslr,
+                        state.bn_state, chunk, num_steps=num_steps,
+                        plain=plain)
                 _, slow = split_fast_slow(cfg, state.params)
                 grads = {
                     "params": {**tree_map(torch.zeros_like, slow),
@@ -309,23 +306,54 @@ def make_meta_gradients(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
                     "lslr": tree_map(torch.zeros_like, state.lslr)}
                 loss = res.loss.mean()
             else:
-                res = task_forward(
-                    cfg, apply_fn, trainable["params"], trainable["lslr"],
-                    state.bn_state, chunk, num_steps=num_steps,
-                    second_order=second_order, use_msl=use_msl,
-                    msl_weights=msl_w, plain=plain)
+                with region("task_adapt"):
+                    res = task_forward(
+                        cfg, apply_fn, trainable["params"],
+                        trainable["lslr"], state.bn_state, chunk,
+                        num_steps=num_steps, second_order=second_order,
+                        use_msl=use_msl, msl_weights=msl_w, plain=plain)
                 loss = res.loss.mean()
                 flat = torch.autograd.grad(loss, leaves, allow_unused=True)
                 it = iter(g if g is not None else torch.zeros_like(t)
                           for g, t in zip(flat, leaves))
                 grads = tree_map(lambda _: next(it), trainable)
                 loss = loss.detach()
-            totals = _add(totals, {
-                "loss": loss, "acc": res.target_accuracy.mean(),
-                "s_loss": res.support_loss.mean(),
-                "bn": tree_map(lambda a: a.mean(0), res.bn_state),
-                "grads": grads})
+            sums = {"loss": loss, "acc": res.target_accuracy.mean(),
+                    "s_loss": res.support_loss.mean(),
+                    "bn": tree_map(lambda a: a.mean(0), res.bn_state),
+                    "grads": grads}
+            if per_step:
+                sums["ps_s"] = res.per_step_support_losses.mean(0)
+                sums["ps_t"] = res.per_step_target_losses.mean(0)
+            totals = _add(totals, sums)
         out = tree_map(lambda a: a / num_micro, totals)
+        out["msl_w"] = msl_w
+        return out
+
+    return accumulate
+
+
+def make_meta_gradients(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
+    """Build ``meta_gradients(state, batch, epoch, *, second_order,
+    use_msl, plain=False) -> (loss, accuracy, support_loss, bn_state,
+    grads)``: the batch's meta-loss and its gradient with respect to
+    ``{"params", "lslr"}``, before any zeroing, clamp or update.
+
+    The batch (leading task axis, uint8 or f32 images) runs in
+    ``cfg.effective_task_microbatches()`` equal chunks, one task-batched
+    forward and one backward each; every output is the sum of the chunk
+    means divided by the chunk count, the JAX package's accumulation.
+    ``bn_state`` is the task mean of the post-task norm states. Under
+    ``meta_algorithm='reptile'`` (outer ``'interpolate'``) the gradient
+    of each fast leaf is the task mean of ``θ − φ`` and every other leaf
+    gets zeros."""
+    accumulate = _make_accumulation(cfg, apply_fn)
+
+    def meta_gradients(state: MetaTrainState, batch: Episode, epoch, *,
+                       second_order: bool, use_msl: bool,
+                       plain: bool = False):
+        out = accumulate(state, batch, epoch, second_order=second_order,
+                         use_msl=use_msl, plain=plain)
         return out["loss"], out["acc"], out["s_loss"], out["bn"], out["grads"]
 
     return meta_gradients
@@ -334,25 +362,34 @@ def make_meta_gradients(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
 def make_train_step(cfg: MAMLConfig, apply_fn, *,
                     reduce_axes=None) -> Callable[..., Any]:
     """Build ``train_step(state, batch, epoch, *, second_order, use_msl,
-    plain=False) -> (new_state, StepMetrics)``: the meta-gradients
-    (:func:`make_meta_gradients`), LSLR gradients zeroed when they are
-    not learnable, γ/β gradients zeroed when BNWB is off, the ±clamp on
-    the network's gradients only, then Adam."""
+    plain=False, health=False) -> (new_state, StepMetrics)``: the
+    meta-gradients (:func:`make_meta_gradients`), LSLR gradients zeroed
+    when they are not learnable, γ/β gradients zeroed when BNWB is off,
+    the ±clamp on the network's gradients only, then Adam. ``health``
+    adds the training-health diagnostics: gradient norms of the
+    meta-gradient before zeroing and clamp, update ratios and LSLR
+    statistics of the updated state, per-step losses and the MSL
+    weights."""
     if reduce_axes:
         raise NotImplementedError(
             "reduce_axes (the cross-device meta-gradient mean) is not "
             "ported yet (ROADMAP.md, Queue 1: parallel/mesh slice)")
-    meta_gradients = make_meta_gradients(cfg, apply_fn)
+    accumulate = _make_accumulation(cfg, apply_fn)
     schedule = meta_lr_schedule(cfg)
     learnable_lslr = cfg.effective_learnable_lslr
 
     def train_step(state: MetaTrainState, batch: Episode, epoch, *,
-                   second_order: bool, use_msl: bool, plain: bool = False
+                   second_order: bool, use_msl: bool, plain: bool = False,
+                   health: bool = False
                    ) -> Tuple[MetaTrainState, StepMetrics]:
-        loss, acc, s_loss, new_bn, grads = meta_gradients(
-            state, batch, epoch, second_order=second_order,
-            use_msl=use_msl, plain=plain)
+        out = accumulate(state, batch, epoch, second_order=second_order,
+                         use_msl=use_msl, plain=plain, per_step=health)
+        loss, acc, s_loss = out["loss"], out["acc"], out["s_loss"]
+        new_bn, grads = out["bn"], out["grads"]
+        diag = None
         with torch.no_grad():
+            if health:
+                diag = health_mod.grad_health(grads)
             if not learnable_lslr:
                 grads["lslr"] = tree_map(torch.zeros_like, grads["lslr"])
             for name, sub in grads["params"].items():
@@ -365,15 +402,21 @@ def make_train_step(cfg: MAMLConfig, apply_fn, *,
                 c = cfg.clamp_meta_grad_value
                 grads["params"] = tree_map(lambda g: g.clamp(-c, c),
                                            grads["params"])
-            new, opt = adam_update(cfg, grads, state.opt_state,
-                                   {"params": state.params,
-                                    "lslr": state.lslr})
+            with region("meta_update"):
+                new, opt = adam_update(cfg, grads, state.opt_state,
+                                       {"params": state.params,
+                                        "lslr": state.lslr})
+            lr = schedule(state.step)
+            if health:
+                diag.update(health_mod.update_health(
+                    cfg, new, opt, lr, out["ps_s"], out["ps_t"],
+                    out["msl_w"]))
         new_state = MetaTrainState(params=new["params"], lslr=new["lslr"],
                                    bn_state=new_bn, opt_state=opt,
                                    step=state.step + 1)
         return new_state, StepMetrics(loss=loss, accuracy=acc,
                                       support_loss=s_loss,
-                                      learning_rate=schedule(state.step))
+                                      learning_rate=lr, health=diag)
 
     return train_step
 

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``ops/episode.py § normalize_images`` and
 /255 to [0, 1], optional channel reversal, then ``(x − mean)·inv_std``
 with the dataset's constants (``cfg.image_norm_resolved``). Images stay
 NHWC here; float inputs pass through untouched. Requests cross to the
-device as uint8 (4x fewer bytes than f32) and are decoded there.
+device as uint8 (4x fewer bytes than f32) and are decoded there. The
+episode decode runs under the ``episode_normalize`` profiler label.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import region
 
 
 def normalize_images(cfg: MAMLConfig, x: torch.Tensor) -> torch.Tensor:
@@ -32,5 +34,6 @@ def normalize_images(cfg: MAMLConfig, x: torch.Tensor) -> torch.Tensor:
 def normalize_episode(cfg: MAMLConfig, ep):
     """Decode an episode batch's support and target images
     (:func:`normalize_images`); labels pass through."""
-    return ep._replace(support_x=normalize_images(cfg, ep.support_x),
-                       target_x=normalize_images(cfg, ep.target_x))
+    with region("episode_normalize"):
+        return ep._replace(support_x=normalize_images(cfg, ep.support_x),
+                           target_x=normalize_images(cfg, ep.target_x))

@@ -9,8 +9,11 @@ detection adds no device work: ``patience`` consecutive bad observations
 :meth:`observe` return True, and ``ExperimentBuilder._perform_rewind``
 rewinds to the last-good epoch checkpoint.
 
-The grad-norm early warning (``observe_grad_norm``) goes with the
-training-health metrics (ROADMAP.md, Queue 1: telemetry slice).
+With the training-health metrics on (``telemetry/health.py``,
+``health_metrics_every_n_steps``) the guard also observes the outer-grad
+global norm through :meth:`observe_grad_norm`: an early warning (one log
+row and a counter, before any NaN-triggered rewind) that never changes
+recovery.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 import math
 from collections import deque
 from typing import Deque
+
+from howtotrainyourmamlpytorch_tpu_torch import resilience
 
 # Spike detection needs a few good observations before the median means
 # anything; until then only non-finite losses count as bad.
@@ -30,15 +35,22 @@ class DivergenceGuard:
     """Decides when the outer loss has diverged. Not thread-safe by
     design — exactly one train loop feeds it."""
 
-    def __init__(self, patience: int = 2, spike_factor: float = 0.0):
+    def __init__(self, patience: int = 2, spike_factor: float = 0.0,
+                 grad_norm_factor: float = 10.0):
         if patience < 1:
             raise ValueError(f"patience must be >= 1, got {patience}")
         if spike_factor != 0.0 and spike_factor <= 1.0:
             raise ValueError(
                 f"spike_factor must be 0 (off) or > 1, got {spike_factor}")
+        if grad_norm_factor != 0.0 and grad_norm_factor <= 1.0:
+            raise ValueError(
+                f"grad_norm_factor must be 0 (non-finite-only) or > 1, "
+                f"got {grad_norm_factor}")
         self.patience = int(patience)
         self.spike_factor = float(spike_factor)
+        self.grad_norm_factor = float(grad_norm_factor)
         self._history: Deque[float] = deque(maxlen=_WINDOW)
+        self._norm_history: Deque[float] = deque(maxlen=_WINDOW)
         self._bad_streak = 0
 
     def _is_spike(self, loss: float) -> bool:
@@ -52,7 +64,14 @@ class DivergenceGuard:
         """Feed one outer-loss scalar; True ⇒ rewind now (and the guard
         has reset itself for the post-rewind stream)."""
         loss = float(loss)
-        bad = not math.isfinite(loss) or self._is_spike(loss)
+        if not math.isfinite(loss):
+            resilience.counter_inc("resilience/nan_steps")
+            bad = True
+        elif self._is_spike(loss):
+            resilience.counter_inc("resilience/loss_spikes")
+            bad = True
+        else:
+            bad = False
         if not bad:
             self._history.append(loss)
             self._bad_streak = 0
@@ -63,8 +82,28 @@ class DivergenceGuard:
             return True
         return False
 
+    def observe_grad_norm(self, norm: float) -> bool:
+        """Feed one outer-grad global norm (the health diagnostic); True ⇒
+        warn now. Warns on a non-finite norm, or — when
+        ``grad_norm_factor`` > 1 — on a norm above factor x the running
+        median of recent healthy norms (bad observations stay out of the
+        history). Counts ``health/grad_norm_warn``; never rewinds."""
+        norm = float(norm)
+        bad = not math.isfinite(norm)
+        if not bad and self.grad_norm_factor \
+                and len(self._norm_history) >= _MIN_HISTORY:
+            ordered = sorted(self._norm_history)
+            median = ordered[len(ordered) // 2]
+            bad = median > 0 and norm > self.grad_norm_factor * median
+        if bad:
+            resilience.counter_inc("health/grad_norm_warn")
+            return True
+        self._norm_history.append(norm)
+        return False
+
     def reset(self) -> None:
         """Forget streaks and history (after a rewind the loss scale may
         legitimately differ — stale medians must not re-trigger)."""
         self._bad_streak = 0
         self._history.clear()
+        self._norm_history.clear()

@@ -15,9 +15,9 @@ primitives with :func:`retry_io`:
   to the defaults.
 
 Retries are NOT applied to append-style writes (``save_statistics``): a
-retry after a partial append would duplicate the row. The registry
-counters of the JAX package (``resilience/io_retries``, ``io_giveups``)
-wait for the telemetry slice (ROADMAP.md, Queue 1).
+retry after a partial append would duplicate the row. Every retry counts
+``resilience/io_retries`` and every exhaustion ``resilience/io_giveups``
+in the installed telemetry registry (``resilience.set_registry``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ import random
 import time
 import warnings
 import zlib
+
+from howtotrainyourmamlpytorch_tpu_torch import resilience
 
 _warned_env = set()
 
@@ -106,7 +108,9 @@ def retry_io(description: str):
                     raise
                 except OSError as e:
                     if attempt >= DEFAULT_RETRIES:
+                        resilience.counter_inc("resilience/io_giveups")
                         raise
+                    resilience.counter_inc("resilience/io_retries")
                     warnings.warn(
                         f"{description}: {type(e).__name__}: {e} — "
                         f"retry {attempt + 1}/{DEFAULT_RETRIES}",

@@ -22,6 +22,7 @@ from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.meta.inner import (
     merge_fast_slow, split_fast_slow, support_adapt_step)
 from howtotrainyourmamlpytorch_tpu_torch.ops.episode import normalize_images
+from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import region
 from howtotrainyourmamlpytorch_tpu_torch.tree import stack_tasks
 
 Params = Dict[str, Any]
@@ -48,17 +49,18 @@ def adapt_task(cfg: MAMLConfig, apply_fn, params: Params, lslr: Params,
     ``support_y``/``support_w`` are ``(T, S)``; ``params``/``lslr``/
     ``bn_state`` are the shared meta-state (no task axis)."""
     num_tasks = support_x.shape[0]
-    support_x = normalize_images(cfg, support_x)
-    fast0, slow = split_fast_slow(cfg, params)
-    fast = stack_tasks(fast0, num_tasks)
-    slow = stack_tasks(slow, num_tasks)
-    bn = stack_tasks(bn_state, num_tasks)
-    losses = []
-    for step in range(num_steps):
-        fast, bn, s_loss = support_adapt_step(
-            cfg, apply_fn, slow, lslr, support_x, support_y, fast, bn, step,
-            second_order=False, support_w=support_w, plain=plain)
-        losses.append(s_loss)
+    with region("serve_adapt"):
+        support_x = normalize_images(cfg, support_x)
+        fast0, slow = split_fast_slow(cfg, params)
+        fast = stack_tasks(fast0, num_tasks)
+        slow = stack_tasks(slow, num_tasks)
+        bn = stack_tasks(bn_state, num_tasks)
+        losses = []
+        for step in range(num_steps):
+            fast, bn, s_loss = support_adapt_step(
+                cfg, apply_fn, slow, lslr, support_x, support_y, fast, bn,
+                step, second_order=False, support_w=support_w, plain=plain)
+            losses.append(s_loss)
     return AdaptedTask(fast=fast, bn_state=bn,
                        support_loss=torch.stack(losses).mean(0))
 
@@ -70,7 +72,7 @@ def predict_tasks(cfg: MAMLConfig, apply_fn, params: Params, fast: Params,
     and norm state (task-stacked), at the last adapt step's BN row."""
     _, slow = split_fast_slow(cfg, params)
     run = merge_fast_slow(fast, stack_tasks(slow, query_x.shape[0]))
-    with torch.no_grad():
+    with torch.no_grad(), region("serve_predict"):
         logits, _ = apply_fn(run, bn_state, normalize_images(cfg, query_x),
                              num_steps - 1, True, plain=plain)
     return logits

@@ -16,7 +16,9 @@ The request lifecycle:
    predictions + logits.
 
 The engine runs on one device: the card unless the caller passes
-``device="cpu"``. Ported so far: the request path above with the L1 cache.
+``device="cpu"``. Adapt and predict run f32 configs with TF32 off
+(``device.numerics_policy``; cuDNN's algorithm choice is left free).
+Ported so far: the request path above with the L1 cache.
 The L2 tier, AOT warm start, hot-swap/canary, watchdog, request tracing,
 alerts, admission control, continuous batching, the metrics registry and
 ``from_checkpoint`` are later work (ROADMAP.md, port queue); the config
@@ -35,6 +37,7 @@ import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
+                                                        numerics_policy,
                                                         resolve_device,
                                                         synchronize)
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import MetaTrainState
@@ -217,13 +220,15 @@ class ServingEngine:
                    record: bool = True) -> AdaptedTask:
         """Adapt one padded miss batch; timed to the device's completion."""
         t0 = time.perf_counter()
-        adapted = adapt_task(
-            self.cfg, self.model_apply, self.state.params, self.state.lslr,
-            self.state.bn_state, self._to_device(batch["support_x"]),
-            self._to_device(batch["support_y"], torch.long),
-            self._to_device(batch["support_w"]),
-            num_steps=self.num_adapt_steps)
-        synchronize(self.device)
+        with numerics_policy(self.cfg.compute_dtype, deterministic=False):
+            adapted = adapt_task(
+                self.cfg, self.model_apply, self.state.params,
+                self.state.lslr, self.state.bn_state,
+                self._to_device(batch["support_x"]),
+                self._to_device(batch["support_y"], torch.long),
+                self._to_device(batch["support_w"]),
+                num_steps=self.num_adapt_steps)
+            synchronize(self.device)
         if record:
             self.adapt_seconds.append(time.perf_counter() - t0)
             self.adapt_invocations += 1
@@ -244,12 +249,13 @@ class ServingEngine:
         for i in range(len(group), b):
             qx[i] = qx[0]
         t0 = time.perf_counter()
-        logits = predict_tasks(
-            self.cfg, self.model_apply, self.state.params,
-            stack([e.fast for e in padded]),
-            stack([e.bn_state for e in padded]), self._to_device(qx),
-            num_steps=self.num_adapt_steps)
-        logits = logits.cpu().numpy()
+        with numerics_policy(self.cfg.compute_dtype, deterministic=False):
+            logits = predict_tasks(
+                self.cfg, self.model_apply, self.state.params,
+                stack([e.fast for e in padded]),
+                stack([e.bn_state for e in padded]), self._to_device(qx),
+                num_steps=self.num_adapt_steps)
+            logits = logits.cpu().numpy()
         if record:
             self.predict_seconds.append(time.perf_counter() - t0)
             self.predict_invocations += 1

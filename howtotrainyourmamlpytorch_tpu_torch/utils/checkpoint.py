@@ -38,6 +38,7 @@ from howtotrainyourmamlpytorch_tpu_torch.convert import (STATE_FIELDS,
                                                          state_to_jax,
                                                          to_state_dict)
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import MetaTrainState
+from howtotrainyourmamlpytorch_tpu_torch.resilience import counter_inc
 from howtotrainyourmamlpytorch_tpu_torch.resilience.retry import retry_io
 from howtotrainyourmamlpytorch_tpu_torch.tree import tree_leaves
 from howtotrainyourmamlpytorch_tpu_torch.utils import msgpack
@@ -165,7 +166,9 @@ class CheckpointManager:
         """GC a killed writer's ``*.tmp`` files and pending manifest
         records (``*.corrupt`` quarantine leftovers stay for forensics)."""
         swept = manifest_mod.sweep(self.manifest)
-        if swept["deleted_files"] or swept["dropped_records"]:
+        n = len(swept["deleted_files"]) + len(swept["dropped_records"])
+        if n:
+            counter_inc("ckpt/gc_deletes", n)
             warnings.warn(
                 f"checkpoint GC swept {swept['deleted_files']} and "
                 f"pending record(s) {swept['dropped_records']} (a "
@@ -293,6 +296,7 @@ class CheckpointManager:
         except OSError:
             return
         self.manifest.remove(str(tag))
+        counter_inc("resilience/quarantined")
         warnings.warn(
             f"quarantined unreadable checkpoint {os.path.basename(path)} "
             f"-> {os.path.basename(path)}.corrupt", stacklevel=3)

@@ -1,23 +1,25 @@
-"""Structured event log and step timer (the port's copy of the JAX
-package's ``utils/tracing.py`` § ``JsonlLogger``, ``StepTimer``).
+"""Structured event log, step timer and device traces (the port's
+counterpart of the JAX package's ``utils/tracing.py``).
 
 * :class:`JsonlLogger` — the experiment's append-only ``events.jsonl``:
   one JSON object per line with ``ts`` and ``event``; NaN/Inf become
-  null, and a size cap rotates the live file into one spare.
+  null, and a size cap rotates the live file into one spare
+  (:func:`read_jsonl_rotated` reads both, oldest first).
 * :class:`StepTimer` — host-side step intervals with nearest-rank
   p50/p95, never synchronizing the device itself.
-
-Device tracing (``profile_trace``) waits for the telemetry slice
-(ROADMAP.md, Queue 1).
+* :func:`profile_trace` — ``torch.profiler`` around a block, written as
+  a Chrome trace (``profile_dir``, ``profile_epoch``); fail-soft.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+import warnings
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 
 class JsonlLogger:
@@ -57,15 +59,41 @@ class JsonlLogger:
             size = f.tell()
         if self.max_bytes > 0 and size > self.max_bytes:
             try:
-                os.replace(self.path, self.path + ".1")
+                os.replace(self.path, rotated_path(self.path))
             except OSError:
                 pass  # rotation is hygiene, never a lost event
         return row
 
 
-def read_jsonl(path: str) -> List[Dict[str, Any]]:
+def rotated_path(path: str) -> str:
+    """The one spare segment a size-capped log rotates into."""
+    return path + ".1"
+
+
+def read_jsonl(path: str,
+               tail: Optional[int] = None) -> List[Dict[str, Any]]:
+    """Parse a JSONL file; ``tail`` parses only the last N lines."""
     with open(path) as f:
-        return [json.loads(line) for line in f if line.strip()]
+        lines = f.readlines()
+    if tail is not None:
+        lines = lines[-tail:]
+    return [json.loads(line) for line in lines if line.strip()]
+
+
+def read_jsonl_rotated(path: str,
+                       tail: Optional[int] = None) -> List[Dict[str, Any]]:
+    """:func:`read_jsonl` over the rotated spare then the live file, so
+    rows come back in write order; a missing segment contributes
+    nothing."""
+    rows: List[Dict[str, Any]] = []
+    for segment in (rotated_path(path), path):
+        try:
+            rows += read_jsonl(segment)
+        except OSError:
+            continue
+    if tail is not None:
+        rows = rows[-tail:]
+    return rows
 
 
 def nearest_rank(sorted_values: Sequence[float], q: float) -> float:
@@ -96,6 +124,11 @@ class StepTimer:
             self._durations.append(now - self._last)
         self._last = now
 
+    @property
+    def durations(self) -> List[float]:
+        """Per-step intervals (a copy), for registry histograms."""
+        return list(self._durations)
+
     def summary(self, tasks_per_step: int) -> Dict[str, float]:
         if not self._durations:
             return {}
@@ -109,3 +142,40 @@ class StepTimer:
             "meta_tasks_per_sec": tasks_per_step * n / total,
             "meta_tasks_per_sec_per_chip": tasks_per_step * n / total,
         }
+
+
+@contextlib.contextmanager
+def profile_trace(profile_dir: Optional[str],
+                  tag: str = "trace") -> Iterator[None]:
+    """Trace the block with ``torch.profiler`` (host ops and, on a card,
+    its kernels) and write ``profile_dir/tag/trace.json``, a Chrome trace
+    (Perfetto, ``chrome://tracing``). No-op when ``profile_dir`` is
+    falsy. Fail-soft: a profiler that cannot start or export warns, and
+    the block runs anyway."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = os.path.join(profile_dir, tag)
+    os.makedirs(out, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    try:
+        prof.__enter__()
+    except Exception as e:  # noqa: BLE001 — diagnostics never kill training
+        warnings.warn(f"profiling unavailable ({e}); continuing untraced")
+        yield
+        return
+    try:
+        yield
+    finally:
+        try:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        except Exception as e:  # noqa: BLE001
+            warnings.warn(f"profiler stop/export failed ({e})")

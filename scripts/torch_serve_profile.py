@@ -29,25 +29,11 @@ from collections import defaultdict
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(REPO, "experiment_config",
                         "mini-imagenet_maml++_5-way_5-shot_DA_b12.json")
+sys.path.insert(0, REPO)
 
-# Kernel-name fragments -> family, first match wins: "pool" comes before
-# "conv", whose "nhwc"/"nchw" fragments would take max_pool_*_nhwc.
-FAMILIES = (
-    ("bn_act", ("bn_act_persistent",)),
-    ("pool", ("max_pool", "pool")),
-    ("conv", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad",
-              "winograd", "nhwc", "nchw")),
-    ("gemm", ("gemm", "cutlass", "cublas", "splitk")),
-    ("reduce", ("reduce", "norm")),
-)
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "elementwise/other"
+# The kernel families of the port's perf sampler (one table).
+from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import (  # noqa: E402
+    kernel_family as family)
 
 
 def main() -> int:
@@ -66,7 +52,6 @@ def main() -> int:
         print("torch_serve_profile: no CUDA device available",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
     from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
         init_train_state)
@@ -119,7 +104,10 @@ def main() -> int:
     by_kernel = defaultdict(float)
     launches = defaultdict(int)
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        # The serve_adapt/serve_predict labels also show as device spans.
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)
+                or "annotation" in str(getattr(evt, "activity_type", ""))):
             continue
         us = evt.time_range.elapsed_us()
         by_family[family(evt.name)] += us

@@ -403,3 +403,64 @@ def test_builder_run_on_the_card(cuda_device, tmp_path):
         assert got[name].device == t.device and torch.equal(got[name], t), (
             name)
     assert reloaded.step == builder.state.step == 4
+
+
+def test_cli_f32_config_convolves_without_tf32(cuda_device, tmp_path,
+                                               monkeypatch):
+    """Through the CLI on the card, an f32 config's train steps run under
+    the entry point's numerics policy: inside each step cuDNN is
+    deterministic and TF32 is off, which a convolution against its f64
+    value shows (max error / max |value| under 1e-5; TF32 rounds inputs
+    to 10 mantissa bits, ~1e-3). Torch's flags come back after the run."""
+    import json
+    import torch.nn.functional as F
+    from howtotrainyourmamlpytorch_tpu_torch import (experiment,
+                                                     train_maml_system)
+    seen = []
+    make = experiment.make_train_step
+
+    def spy(cfg, apply_fn, **kw):
+        step = make(cfg, apply_fn, **kw)
+
+        def wrapped(*args, **kwargs):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            x = torch.randn(8, 64, 32, 32, device="cuda", generator=gen)
+            w = torch.randn(64, 64, 3, 3, device="cuda", generator=gen)
+            ref = F.conv2d(x.double(), w.double(), padding=1)
+            err = (F.conv2d(x, w, padding=1).double() - ref).abs().max()
+            seen.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.deterministic,
+                         float(err / ref.abs().max())))
+            return step(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(experiment, "make_train_step", spy)
+    path = tmp_path / "f32.json"
+    path.write_text(json.dumps(dict(
+        experiment_name="f32", dataset_name="synthetic", image_height=12,
+        image_width=12, image_channels=3, num_classes_per_set=3,
+        num_samples_per_class=2, num_target_samples=2, cnn_num_filters=8,
+        num_stages=2, number_of_training_steps_per_iter=2,
+        number_of_evaluation_steps_per_iter=2, batch_size=4,
+        task_microbatches=2, compute_dtype="float32", bn_fast_math=False,
+        bn_backend="pallas", total_epochs=1, total_iter_per_epoch=2,
+        num_evaluation_tasks=4, max_models_to_save=1)))
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             cudnn.deterministic, cudnn.benchmark)
+    try:
+        cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        cudnn.deterministic, cudnn.benchmark = False, True
+        rc = train_maml_system.main(["--name_of_args_json_file", str(path),
+                                     "--experiment_root", str(tmp_path)])
+        after = (cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                 cudnn.deterministic, cudnn.benchmark)
+    finally:
+        (cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         cudnn.deterministic, cudnn.benchmark) = saved
+    assert rc == 0 and len(seen) == 2
+    for tf32, mm_tf32, deterministic, err in seen:
+        assert not tf32 and not mm_tf32 and deterministic
+        assert err < 1e-5, err
+    assert after == (True, True, False, True)

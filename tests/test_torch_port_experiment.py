@@ -411,13 +411,10 @@ def test_get_args_rejects_what_jax_rejects(argv):
 
 @pytest.mark.parametrize("knob", [
     dict(mesh_shape=(1, 2)), dict(aot_store_dir="store"),
-    dict(compilation_cache_dir="cache"), dict(alert_rules_path="rules"),
+    dict(compilation_cache_dir="cache"),
     dict(cluster_collective_timeout_s=5.0),
     dict(cluster_collective_timeout_s=5.0, elastic_mode=1),
-    dict(fault_spec="nan_loss@1"), "MAML_FAULTS",
-    dict(profile_every_n_steps=1), dict(profile_dir="prof"),
-    dict(use_tensorboard=True), dict(ckpt_async=1),
-    dict(health_metrics_every_n_steps=1)],
+    dict(fault_spec="nan_loss@1"), "MAML_FAULTS", dict(ckpt_async=1)],
     ids=lambda k: k if isinstance(k, str) else next(iter(k)))
 def test_unported_knob_raises(knob, tmp_path, monkeypatch):
     kw = {}
@@ -427,6 +424,69 @@ def test_unported_knob_raises(knob, tmp_path, monkeypatch):
         kw = knob
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ExperimentBuilder(MAMLConfig(**_kw(tmp_path, **kw)), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    "alert_rules_path", dict(profile_every_n_steps=1),
+    dict(profile_dir="prof"), dict(use_tensorboard=True),
+    dict(health_metrics_every_n_steps=1, dispatch_sync_every=1)],
+    ids=lambda k: k if isinstance(k, str) else next(iter(k)))
+def test_ported_knob_builds_and_runs_one_step(knob, tmp_path):
+    """The telemetry slice's knobs no longer raise: a builder with each
+    one set runs one train step (one epoch of one iteration, its
+    validation and test) and writes what the knob asks for."""
+    if knob == "alert_rules_path":
+        rules = tmp_path / "rules.json"
+        rules.write_text(json.dumps({"rules": [
+            {"name": "loss", "type": "threshold",
+             "metric": "train/train_loss", "op": ">", "value": 0.0}]}))
+        knob = dict(alert_rules_path=str(rules))
+    if "profile_dir" in knob:
+        knob = dict(profile_dir=str(tmp_path / "prof"))
+    builder, result = _run_port(tmp_path, total_epochs=1,
+                                total_iter_per_epoch=1, **knob)
+    assert builder.current_iter == 1 and result["num_models"] == 1
+    logs = builder.paths["logs"]
+    events = {r["event"] for r in read_jsonl(f"{logs}/events.jsonl")}
+    want = {"alert_rules_path": "alert",
+            "health_metrics_every_n_steps": "health"}
+    name = next(iter(knob))
+    if name in want:
+        assert want[name] in events
+    if name == "profile_every_n_steps":
+        # A phase's first step counts its FLOPs; the sampler skips it.
+        with open(f"{logs}/PROFILE.json") as f:
+            assert json.load(f)["cards"]["train_so1_msl1"]["flops"] > 0
+    if name == "profile_dir":
+        assert os.path.isfile(tmp_path / "prof" / "epoch0" / "trace.json")
+
+
+def test_run_holds_the_numerics_policy_and_restores_it(tmp_path,
+                                                       monkeypatch):
+    """``run_experiment`` runs every train step of an f32 config with TF32
+    off for cuDNN and cuBLAS and cuDNN deterministic without autotuning,
+    and hands torch's flags back as it found them."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    for flag, value in ((cudnn, "allow_tf32"), (matmul, "allow_tf32"),
+                        (cudnn, "deterministic"), (cudnn, "benchmark")):
+        monkeypatch.setattr(flag, value, getattr(flag, value))
+    cudnn.allow_tf32, matmul.allow_tf32 = True, True
+    cudnn.deterministic, cudnn.benchmark = False, True
+    builder = ExperimentBuilder(MAMLConfig(**_kw(
+        tmp_path, total_epochs=1, total_iter_per_epoch=2)), device="cpu")
+    seen = []
+    step = builder.train_step
+
+    def watched(*args, **kwargs):
+        seen.append((cudnn.allow_tf32, matmul.allow_tf32,
+                     cudnn.deterministic, cudnn.benchmark))
+        return step(*args, **kwargs)
+
+    builder.train_step = watched
+    builder.run_experiment()
+    assert seen == [(False, False, True, False)] * 2
+    assert (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+            cudnn.benchmark) == (True, True, False, True)
 
 
 def test_cli_refuses_downloads_and_needs_the_card_by_default(tmp_path):

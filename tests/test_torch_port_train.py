@@ -681,7 +681,7 @@ def test_algorithm_gates_match_jax(algo):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(health_metrics_every_n_steps=1), dict(elastic_pad_tasks=2),
+    dict(elastic_pad_tasks=2),
     dict(msl_target_batching="on"), dict(remat_policy="conv_outs"),
     dict(remat_policy="dots"), "reduce_axes"])
 def test_deferred_knobs_raise(knob):
@@ -692,3 +692,16 @@ def test_deferred_knobs_raise(knob):
                            if knob == "reduce_axes" else {}))
         step(st, _torch_batch(_batch(cfg, 9)), 0, second_order=True,
              use_msl=True)
+
+
+@pytest.mark.parametrize("knob", [dict(health_metrics_every_n_steps=1)])
+def test_ported_knobs_build_and_run_one_step(knob):
+    """Knobs whose slice has landed build a train step and run it: with
+    the training-health metrics on, a step asked for them returns them,
+    every value finite."""
+    cfg, apply, st = _port_only(**knob)
+    _, m = outer.make_train_step(cfg, apply)(
+        st, _torch_batch(_batch(cfg, 9)), 0, second_order=True,
+        use_msl=True, health=True)
+    assert m.health and all(bool(torch.isfinite(v).all())
+                            for v in m.health.values())
