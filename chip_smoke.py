@@ -90,6 +90,21 @@ failure:
    profiler labels cost with the profiler off, and the port's sampler
    beside this script's own profile of one step (phases 4 and 6 print
    the same pair for their profiled steps).
+8. The trainer's fault path at the flagship's full width (``fault_path``):
+   ``scripts/torch_chaos_run.py``'s phases in process on the card (its
+   verdict must be ``recovered``; the ckpt_kill and hang restarts resume
+   from the last committed manifest entry and end bitwise the baseline;
+   every in-process phase launches the BN kernel as derived for what it
+   ran); a hang on the device (a ``torch.cuda._sleep`` spin kernel after
+   the second step of a flagship CLI child with a 6 s step deadline) and
+   the ``hang_step`` fault, each exiting 74 within the deadline + 2 polls
+   + 5 s with a full crash bundle (the device hang's ``stacks.txt`` with
+   the main thread at the loss fetch, its ``events.jsonl`` read by
+   ``scripts/telemetry_report.py`` with one trip), as the chaos run's
+   ``hang_feed`` child does; an async run's checkpoints byte-identical
+   the sync baseline's, the train thread's time in a ResNet-12 save sync
+   against async; three steps with the watchdog on against off, bitwise;
+   and a cold ``bn_act`` build under a 1 s step deadline without a trip.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -675,6 +690,16 @@ def serve_flagship(entry: dict, card: str) -> None:
           flush=True)
     if cos < LOGITS_COSINE or bool((flips & ~tie).any()):
         raise AssertionError("kernel and plain-version logits disagree")
+    # The serving above ran under the engine's own watchdog at the
+    # config's serve_request deadline, and did not trip.
+    dog = engine._watchdog
+    if dog is None or dog.tripped is not None:
+        raise AssertionError(f"serve: engine watchdog {dog} tripped "
+                             f"{getattr(dog, 'tripped', None)}")
+    print(f"serve: under the engine's watchdog (serve_request deadline "
+          f"{dog.deadline_for('serve_request'):.0f} s, poll "
+          f"{dog.poll_interval_s:.1f} s): no trip", flush=True)
+    engine.close()
 
 
 def _leaf_vectors(grads):
@@ -758,7 +783,7 @@ def _profiled(label: str, fn, card: str) -> dict:
 
 
 def _deterministic_cost(label: str, fn, card: str,
-                        turns=("off", "on", "on", "off")) -> None:
+                        turns=("on", "off")) -> None:
     """Wall time of ``fn`` (synchronized) with cuDNN's deterministic
     algorithms on and off, in ``turns`` after one warm-up call of each,
     ``cudnn.benchmark`` off throughout (the trainer's policy against
@@ -1099,7 +1124,7 @@ def train_flagship(entry: dict, card: str) -> None:
              bn_kernels=micro * s * (k + remat))
     _deterministic_cost("train, one second-order step",
                         lambda: train_step(state, spare, 41, **so_step),
-                        card, turns=("off", "on", "on", "off", "off", "on"))
+                        card, turns=("off", "on", "on", "off"))
 
     # Remat: one second-order step, timed and its peak memory, per
     # variant, in turns.
@@ -1145,13 +1170,17 @@ def _train_path_launches(cfg, epochs, iters, val_sweeps,
     """BN-kernel launches a builder run makes: per train step, microbatches
     x BN layers x (K support + targets x remat) forwards; per eval batch,
     BN layers x (eval steps + 1); the batches of a sweep pad the
-    evaluation tasks up to a full last batch."""
+    evaluation tasks up to a full last batch. ``iters`` is the steps of
+    each of epochs ``0 .. epochs-1``, or a ``{epoch: steps}`` dict for a
+    run that did not train every epoch alike (a rewind, a resume)."""
     s, k = _bn_per_forward(cfg), cfg.number_of_training_steps_per_iter
     remat = 2 if (cfg.remat_inner_steps
                   and cfg.remat_policy == "block_outs") else 1
     micro = cfg.effective_task_microbatches()
-    train = sum(iters * micro * s * (k + (k if cfg.use_msl(e) else 1)
-                                     * remat) for e in range(epochs))
+    steps = (iters if isinstance(iters, dict)
+             else {e: iters for e in range(epochs)})
+    train = sum(n * micro * s * (k + (k if cfg.use_msl(e) else 1) * remat)
+                for e, n in steps.items())
     batches = -(-cfg.num_evaluation_tasks // cfg.effective_eval_batch_size)
     per_sweep = batches * s * (cfg.number_of_evaluation_steps_per_iter + 1)
     return train + (val_sweeps + test_models) * per_sweep
@@ -1452,6 +1481,7 @@ def _r12_serve(cfg, state, card: str):
               f"{int((flips & ~tie).sum())} outside the {int(tie.sum())} "
               f"near-tie rows ({card})", flush=True)
     cos = _logits_agreement(logits["kernel"], logits["plain"])[0]
+    engine.close()
     failures = []
     if cos < R12_SERVE_COSINE:
         failures.append(f"resnet12 serve: kernel vs plain logits cosine "
@@ -1883,8 +1913,7 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
             step()
             if sampler.end_window(0, executable=name) is None:
                 raise AssertionError("telemetry: a sample window failed")
-        for kind in ("off", "health", "window", "window", "health", "off",
-                     "off", "health", "window"):
+        for kind in ("off", "health", "window", "window", "health", "off"):
             ms[kind].append(timed({"off": step,
                                    "health": lambda: step(health=True),
                                    "window": window}[kind]))
@@ -1898,7 +1927,7 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
         label_us = (time.perf_counter() - t0) / n_calls * 1e6
         labels = cfg.effective_task_microbatches() * (
             1 + 3 * k + (k if phase["use_msl"] else 1)) + 2
-        print(f"telemetry costs, one {name} step (median of 3, in turns): "
+        print(f"telemetry costs, one {name} step (median of 2, in turns): "
               f"plain {med['off']:.1f} ms, health on {med['health']:.1f} ms "
               f"(+{med['health'] - med['off']:.1f}), in a sample window "
               f"with its attribution {med['window']:.1f} ms "
@@ -1911,6 +1940,431 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
         _profiled(f"telemetry, one {name} step", step, card)
         _sampled(f"telemetry, one {name} step", name, step, card,
                  bn_kernels=bn_per_step(name))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# Phase 8: the trainer's fault path at the flagship's full width
+# (bf16 + fast-math BN, bn_backend=pallas, phase 5's length cuts), through
+# scripts/torch_chaos_run.py's functions in process, plus the hangs on the
+# card, async against sync checkpoints, the watchdog on against off and
+# a cold kernel build under a tight step deadline.
+CHAOS_SCRIPT = os.path.join(REPO, "scripts", "torch_chaos_run.py")
+# The trip children's step deadline ("a few seconds": a flagship step
+# takes ~1-2 s of host time) and poll; a trip must exit 74 within the
+# deadline + 2 polls + 5 s of the hang's start.
+HANG_STEP_DEADLINE = 6.0
+HANG_POLL = 0.5
+HANG_SLACK = 5.0
+# The device hang's spin kernel: 4e10 cycles, 20 s at 2 GHz, past the
+# deadline and bounded if the watchdog fails to end the process.
+SPIN_CYCLES = 4 * 10**10
+# A flagship child that launches the spin kernel after its second train
+# step, on the step's stream: the loss fetch then waits behind it.
+DEVICE_HANG_CHILD = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from howtotrainyourmamlpytorch_tpu_torch import experiment, train_maml_system
+real = experiment.make_train_step
+def make(cfg, apply):
+    step, calls = real(cfg, apply), []
+    def spun(*args, **kwargs):
+        out = step(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == 2:
+            torch.cuda._sleep(int(sys.argv[2]))
+        return out
+    return spun
+experiment.make_train_step = make
+sys.exit(train_maml_system.main(sys.argv[3:]))
+"""
+TRIP_ARGS = ["--dispatch_sync_every", "1", "--watchdog_step_timeout_s",
+             str(HANG_STEP_DEADLINE), "--watchdog_poll_interval_s",
+             str(HANG_POLL)]
+
+
+def _load_script(path: str):
+    """A script of the repo as a module (scripts/ is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _trip_latency(bundle: dict, t_exit: float) -> float:
+    """Seconds from the hang's start (the tripped phase's last stamp in
+    the flight ring) to the process's exit."""
+    phase = bundle["crash"]["phase"]
+    stamps = [r["ts"] for r in bundle["flight"]
+              if r.get("kind") == "phase" and r.get("phase") == phase]
+    return t_exit - stamps[-1]
+
+
+def _tripped_child(tag: str, argv, root: str, chaos, phase: str,
+                   deadline: float, card: str, code=None, env=None) -> dict:
+    """One flagship CLI child that must trip the watchdog in ``phase``:
+    exit 74 within ``deadline`` + 2 polls + 5 s of the hang's start, a
+    bundle with stacks, the flight ring, its trace and ``crash.json``,
+    and one ``watchdog_trip`` row. Returns the bundle's view."""
+    run = ["--name_of_args_json_file", FLAGSHIP, "--experiment_root", root,
+           "--experiment_name", tag] + CLI_ARGS + TRIP_ARGS + argv
+    cmd = ([sys.executable, "-c", code, REPO, str(SPIN_CYCLES)] + run
+           if code else [sys.executable, "-m",
+                         "howtotrainyourmamlpytorch_tpu_torch."
+                         "train_maml_system"] + run)
+    child_env = dict(os.environ)
+    child_env.pop("MAML_FAULTS", None)
+    child_env.update(env or {})
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=child_env, capture_output=True,
+                          text=True, timeout=300)
+    t_exit = time.time()
+    logs = os.path.join(root, tag, "logs")
+    bundle = chaos.bundle_view(os.path.join(logs, "crash_bundle"))
+    trips = [e for e in chaos.read_events(logs)
+             if e.get("event") == "watchdog_trip"]
+    need = {"stacks.txt", "flight.jsonl", "trace.json", "crash.json"}
+    if (proc.returncode != 74 or not need <= set(bundle["files"])
+            or bundle["crash"].get("reason") != f"hung_{phase}"
+            or len(trips) != 1):
+        raise AssertionError(
+            f"{tag}: exit {proc.returncode}, bundle {bundle['files']}, "
+            f"crash {bundle['crash'].get('reason')}, {len(trips)} trip "
+            f"rows; stderr {proc.stderr[-1500:]}")
+    latency = _trip_latency(bundle, t_exit)
+    bound = deadline + 2 * HANG_POLL + HANG_SLACK
+    print(f"{tag}: exit 74 in {time.perf_counter() - t0:.1f} s, "
+          f"{latency:.2f} s after the hang began (bound {bound:.1f} s: "
+          f"deadline {deadline:.1f} + 2 polls of {HANG_POLL} + "
+          f"{HANG_SLACK:.0f}); crash.json {bundle['crash']['reason']}, "
+          f"age {bundle['crash']['age_seconds']:.2f} s at the trip; bundle "
+          f"{bundle['files']}, {len(bundle['flight'])} flight rows "
+          f"({card})", flush=True)
+    if latency > bound:
+        raise AssertionError(f"{tag}: exit {latency:.2f} s after the hang "
+                             f"began, over {bound:.1f} s")
+    return bundle
+
+
+def _main_thread_in_loss_fetch(stacks: str) -> bool:
+    """Whether a thread of ``stacks.txt`` stands innermost at the train
+    loop's loss fetch (where the host waits for the card)."""
+    from howtotrainyourmamlpytorch_tpu_torch import experiment
+    src = open(experiment.__file__).read().splitlines()
+    line = next(i + 1 for i, text in enumerate(src)
+                if "loss_now = float(metrics.loss)" in text)
+    for block in stacks.split("\n\n"):
+        frames = [f.strip() for f in block.splitlines()
+                  if f.strip().startswith("File ")]
+        if frames and frames[0].endswith(f"line {line} in _train_epoch"):
+            return True
+    return False
+
+
+def _save_bytes(models: str) -> dict:
+    """The checkpoint files, manifest and bookkeeping of a run."""
+    names = sorted(n for n in os.listdir(models)
+                   if n.endswith(".ckpt") or n in ("MANIFEST.json",
+                                                   "state.json"))
+    return {n: open(os.path.join(models, n), "rb").read() for n in names}
+
+
+def _r12_save_costs(root: str, card: str) -> None:
+    """The train thread's time in ``CheckpointWriter.save`` for one
+    ResNet-12 one-card state, sync against async, in turns; the two
+    directories' files byte-identical."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.ckpt.writer import (
+        CheckpointWriter)
+    from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
+        init_train_state)
+    from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+    from howtotrainyourmamlpytorch_tpu_torch.train_maml_system import (
+        get_args)
+    from howtotrainyourmamlpytorch_tpu_torch.tree import tree_leaves
+    from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    cfg = get_args(["--name_of_args_json_file", RESNET12] + R12_CLI_ARGS)
+    state = init_train_state(cfg, make_model(cfg)[0], seed=cfg.seed,
+                             device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    writers = {mode: CheckpointWriter(
+        CheckpointManager(os.path.join(root, mode), max_to_keep=2),
+        async_saves=mode == "async") for mode in ("sync", "async")}
+    ms = {"sync": [], "async": []}
+    for mode, epoch in (("sync", 0), ("async", 0), ("async", 1),
+                        ("sync", 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writers[mode].save(state, epoch, 100 * (epoch + 1), 0.5)
+        ms[mode].append((time.perf_counter() - t0) * 1e3)
+        writers[mode].drain()
+    for w in writers.values():
+        w.close()
+    a, b = (_save_bytes(os.path.join(root, m)) for m in ("sync", "async"))
+    size = len(next(v for k, v in a.items() if k.endswith(".ckpt")))
+    print(f"resnet12 save, {n_params / 1e6:.2f} M params with Adam's "
+          f"moments ({size / 2**20:.1f} MiB per file): the train thread "
+          f"spends {[round(x, 1) for x in ms['sync']]} ms in a sync save, "
+          f"{[round(x, 1) for x in ms['async']]} ms in an async one "
+          f"(encode + enqueue; in turns) ({card})", flush=True)
+    if a != b:
+        raise AssertionError("resnet12 save: sync and async files differ")
+
+
+def _watchdog_on_off(cfg, card: str) -> int:
+    """Three flagship train steps from one seeded state with the watchdog
+    on (beacon, ring and thread installed, 'step' stamped per step) and
+    three with it off, in turns: the final states bitwise equal. Returns
+    the BN-kernel launches of the six steps."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.data import (
+        MetaLearningDataLoader)
+    from howtotrainyourmamlpytorch_tpu_torch.device import numerics_policy
+    from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
+        init_train_state, make_train_step)
+    from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.resilience import (flightrec,
+                                                                watchdog)
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
+
+    init, apply = make_model(cfg)
+    step = make_train_step(cfg, apply)
+    epoch = cfg.total_epochs - 1
+    phase = dict(second_order=cfg.use_second_order(epoch),
+                 use_msl=cfg.use_msl(epoch))
+    loader = MetaLearningDataLoader(cfg, device="cuda")
+    batches = list(loader.get_train_batches(0, 3))
+    states = {k: init_train_state(cfg, init, seed=cfg.seed, device="cuda")
+              for k in ("on", "off")}
+    beacon = watchdog.ProgressBeacon()
+    prev_rec = flightrec.install(flightrec.FlightRecorder())
+    dog = watchdog.Watchdog(beacon, watchdog.deadlines_from_config(cfg),
+                            bundle_dir=os.path.join(REPO, ".smoke_runs",
+                                                    "on_off_bundle"),
+                            on_trip=lambda info: None).start()
+    ms = {"on": [], "off": []}
+    bn_act.reset_launches()
+    try:
+        with numerics_policy(cfg.compute_dtype, deterministic=True):
+            for i, order in enumerate((("off", "on"), ("on", "off"),
+                                       ("off", "on"))):
+                for arm in order:
+                    prev = watchdog.install_beacon(
+                        beacon if arm == "on" else None)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    watchdog.stamp("step", detail=i)
+                    states[arm], metrics = step(states[arm], batches[i],
+                                                epoch, **phase)
+                    float(metrics.loss)
+                    ms[arm].append((time.perf_counter() - t0) * 1e3)
+                    watchdog.install_beacon(prev)
+    finally:
+        dog.stop()
+        flightrec.install(prev_rec)
+    launches = bn_act.launches
+    a, b = (_state_leaves(states[k]) for k in ("on", "off"))
+    diff = [n for n in a if not torch.equal(a[n], b[n])]
+    print(f"watchdog on vs off, 3 {profiler.phase_card_name(**phase)} "
+          f"steps each (in "
+          f"turns): median {statistics.median(ms['on']):.1f} ms on, "
+          f"{statistics.median(ms['off']):.1f} ms off (on "
+          f"{[round(x, 1) for x in ms['on']]}, off "
+          f"{[round(x, 1) for x in ms['off']]}); final state bitwise "
+          f"{not diff}; trips {dog.tripped} ({card})", flush=True)
+    if diff or dog.tripped is not None:
+        raise AssertionError(f"watchdog on vs off: states differ in {diff}")
+    return launches
+
+
+def _cold_build_under_deadline(card: str) -> None:
+    """``bn_act`` built cold (an empty build directory) while a watchdog
+    enforces a 1 s step deadline and the default compile one, with
+    'step' stamped, as at a run's first train step: the build runs under
+    'compile' and nothing trips; then one launch on the new library."""
+    import shutil
+    import tempfile
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act, build
+    from howtotrainyourmamlpytorch_tpu_torch.resilience import (flightrec,
+                                                                watchdog)
+
+    deadlines = {**watchdog.deadlines_from_config(MAMLConfig()),
+                 "step": 1.0}
+    rec = flightrec.FlightRecorder()
+    prev_rec = flightrec.install(rec)
+    beacon = watchdog.ProgressBeacon()
+    prev_beacon = watchdog.install_beacon(beacon)
+    tmp = tempfile.mkdtemp(prefix="cold_build_",
+                           dir=os.path.join(REPO, ".smoke_runs"))
+    dog = watchdog.Watchdog(beacon, deadlines, bundle_dir=tmp,
+                            poll_interval_s=0.1,
+                            on_trip=lambda info: None).start()
+    old_dir, old_built = build.BUILD_DIR, build._built.pop("bn_act")
+    try:
+        build.BUILD_DIR = os.path.join(tmp, "_build")
+        beacon.stamp("step", detail=0)
+        built = build.load("bn_act")
+        x = torch.randn(SHOTS * 84 * 84, FILTERS, device="cuda")
+        g = torch.ones(FILTERS, device="cuda")
+        before = bn_act.launches
+        y, _, _ = bn_act.bn_act(x, g, torch.zeros_like(g), 1e-5, 0.0)
+        torch.cuda.synchronize()
+        launched = bn_act.launches - before
+        beacon.stamp("step", detail=1)
+    finally:
+        dog.stop()
+        build.BUILD_DIR = old_dir
+        build._built["bn_act"] = old_built
+        watchdog.install_beacon(prev_beacon)
+        flightrec.install(prev_rec)
+        shutil.rmtree(tmp, ignore_errors=True)
+    compiles = [r for r in rec.events() if r.get("kind") == "phase"
+                and r.get("phase") == "compile"]
+    print(f"cold build: nvcc {built.seconds:.2f} s under a 1 s step "
+          f"deadline (poll 0.1 s) and a {deadlines['compile']:.0f} s "
+          f"compile deadline, in phase {[r['detail'] for r in compiles]}; "
+          f"trips {dog.tripped}; one launch after it ({card})", flush=True)
+    if (dog.tripped is not None or built.seconds <= 1.0 or launched != 1
+            or [r["detail"] for r in compiles] != ["nvcc:bn_act"]
+            or not torch.isfinite(y.float()).all()):
+        raise AssertionError(f"cold build: trip {dog.tripped}, nvcc "
+                             f"{built.seconds:.2f} s, launches {launched}")
+
+
+def fault_path(entry: dict, card: str) -> None:
+    """Phase 8: the port's chaos run at the flagship's width (verdict
+    recovered; the ckpt_kill and hang restarts from the last committed
+    entry and bitwise the baseline; the BN kernel's launches of every
+    in-process phase as derived), a hang on the device, ``hang_step``
+    and ``hang_feed`` each exiting 74 with a bundle in time, async and
+    sync runs' checkpoints byte-identical, the watchdog on against off,
+    and a cold kernel build under a 1 s step deadline. Adds the main
+    path's launches to ``entry``."""
+    import shutil
+    import tempfile
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.resilience import faults
+
+    chaos = _load_script(CHAOS_SCRIPT)
+    runs_dir = os.path.join(REPO, ".smoke_runs")
+    os.makedirs(runs_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="faults_", dir=runs_dir)
+    marks = [("start", time.perf_counter())]
+    try:
+        art = chaos.chaos(os.path.join(tmp, "chaos"), "cuda", quick=False,
+                          log=lambda line: print(f"chaos: {line}",
+                                                 flush=True))
+        phases = art.pop("_phases")
+        print(f"chaos: {json.dumps(art)}", flush=True)
+        if art["status"] != "recovered":
+            raise AssertionError(
+                f"chaos: verdict {art['status']}; ckpt_kill restart differs "
+                f"in {art['ckpt_kill_restart_differing_leaves']}, hang "
+                f"restart in {art['hang_restart_differing_leaves']}")
+        cfg = phases["baseline"]["builder"].cfg
+        t = cfg.total_iter_per_epoch
+        at = {s.kind: s.at for s in faults.parse_specs(chaos.FAULTED_SPEC)}
+        models = {k: p["result"].get("num_models", 0)
+                  for k, p in phases.items()}
+        # Steps per epoch and eval sweeps of each in-process phase: the
+        # faulted run trains epoch 1 to the NaN, rewinds to epoch 0's
+        # checkpoint and trains it again to the kill.
+        want = {
+            "baseline": ({0: t, 1: t}, 2 + models["baseline"]),
+            "faulted": ({0: t, 1: (at["nan_loss"] - t)
+                         + (at["kill"] - t)}, 1),
+            "restart": ({}, models["restart"]),
+            "ckpt_kill_restart": ({1: t}, 1 + models["ckpt_kill_restart"]),
+            "hang_restart": ({1: t}, 1 + models["hang_restart"]),
+        }
+        for name, (steps, sweeps) in want.items():
+            n = _train_path_launches(cfg, 0, steps, sweeps, 0)
+            got = phases[name]["launches"]
+            if got != n:
+                raise AssertionError(f"chaos {name}: bn_act launched {got} "
+                                     f"times, the path needs {n}")
+            entry["launches"] += got
+        print("chaos: bn_act launches per phase " + json.dumps(
+            {k: p["launches"] for k, p in phases.items()}) + " = derived; "
+            "seconds " + json.dumps({k: round(p["seconds"], 1)
+                                     for k, p in phases.items()})
+            + f" ({card})", flush=True)
+        hang_latency = art["hang_age_seconds"] + art[
+            "hang_exit_after_trip_seconds"]
+        hang_bound = (art["hang_deadline_seconds"] + 2 * chaos.HANG_DEADLINES[
+            "watchdog_poll_interval_s"] + HANG_SLACK)
+        print(f"chaos hang_feed: exit 74 {hang_latency:.2f} s after the "
+              f"feed wedged (bound {hang_bound:.1f} s) ({card})", flush=True)
+        if hang_latency > hang_bound:
+            raise AssertionError("chaos hang_feed: the trip came late")
+        marks.append(("chaos", time.perf_counter()))
+
+        # Async against sync: the baseline saved synchronously.
+        async_run = chaos.run_phase(chaos.make_cfg(
+            os.path.join(tmp, "chaos"), "chaos_async", False, ckpt_async=1),
+            "cuda")
+        if async_run["launches"] != phases["baseline"]["launches"]:
+            raise AssertionError("async run: bn_act launches differ")
+        entry["launches"] += async_run["launches"]
+        runs = {"sync": phases["baseline"], "async": async_run}
+        files = {k: _save_bytes(r["builder"].paths["saved_models"])
+                 for k, r in runs.items()}
+        same = (set(files["sync"]) == set(files["async"])
+                and all(files["sync"][n] == files["async"][n]
+                        for n in files["sync"]))
+        for k, r in runs.items():
+            c = r["counters"]
+            print(f"ckpt_async={int(k == 'async')}: epoch seconds "
+                  f"{_epoch_seconds(r['builder'].paths['logs'])}; "
+                  f"ckpt/save_seconds {c['ckpt/save_seconds']:.4f}, "
+                  f"ckpt/blocked_seconds {c['ckpt/blocked_seconds']:.4f} "
+                  f"over {c['ckpt/saves']:.0f} saves ({card})", flush=True)
+        print(f"async vs sync: {sorted(files['sync'])} byte-identical "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError("async and sync runs' checkpoints differ")
+        del runs, async_run, phases
+        _r12_save_costs(os.path.join(tmp, "r12_saves"), card)
+        marks.append(("async", time.perf_counter()))
+
+        # A hang on the device: the spin kernel after the second step.
+        bundle = _tripped_child("device_hang", [], os.path.join(tmp, "hang"),
+                                chaos, "step", HANG_STEP_DEADLINE, card,
+                                code=DEVICE_HANG_CHILD)
+        in_fetch = _main_thread_in_loss_fetch(bundle["stacks"])
+        report = subprocess.run(
+            [sys.executable, os.path.join(REPO, "scripts",
+                                          "telemetry_report.py"),
+             os.path.join(tmp, "hang", "device_hang"), "--json"],
+            capture_output=True, text=True, timeout=120, cwd=REPO)
+        summary = json.loads(report.stdout.strip().splitlines()[-1])
+        print(f"device_hang: main thread in the loss fetch in stacks.txt "
+              f"{in_fetch}; telemetry_report watchdog section "
+              f"{summary['watchdog']}", flush=True)
+        if (not in_fetch or not isinstance(summary["watchdog"], dict)
+                or summary["watchdog"]["trips"] != 1):
+            raise AssertionError(f"device_hang: stacks\n{bundle['stacks']}")
+        _tripped_child("hang_step", ["--fault_spec", "hang_step@2"],
+                       os.path.join(tmp, "hang"), chaos, "step",
+                       HANG_STEP_DEADLINE, card,
+                       env={"MAML_HANG_SECONDS": "60"})
+        marks.append(("hangs", time.perf_counter()))
+
+        entry["launches"] += _watchdog_on_off(cfg, card)
+        _cold_build_under_deadline(card)
+        marks.append(("watchdog", time.perf_counter()))
+        print("phase 8 seconds per part: " + json.dumps(
+            {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}),
+            flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -1961,7 +2415,8 @@ def main() -> int:
                         ("cli", cli_flagship),
                         ("backbones", other_backbones),
                         ("telemetry", lambda e, c: cli_telemetry(
-                            e, c, results["cli"]))):
+                            e, c, results["cli"])),
+                        ("faults", fault_path)):
         t1 = time.perf_counter()
         results[name] = phase(entry, card)
         seconds[name] = round(time.perf_counter() - t1, 1)

@@ -7,8 +7,9 @@ changes (the port imports nothing of the JAX package):
 
 * ``_meta_algos`` returns the port's own algorithm registry
   (``meta/algos.py``);
-* the ``fault_spec`` and ``xla_compiler_options`` validators are local
-  copies of the JAX package's stdlib-only parsers;
+* the ``fault_spec`` validator is the port's ``resilience/faults.py``
+  parser and the ``xla_compiler_options`` one a local copy of the JAX
+  package's stdlib-only parser;
 * ``bn_backend='pallas'`` means "the hand-written Hopper kernel"
   (``ops/bn_act.py``) here, so one JSON means the same in both packages.
 
@@ -56,21 +57,10 @@ def _meta_algos():
 
 def _parse_fault_spec(text: str) -> None:
     """Validate a ``"kind@at[:count]"`` fault plan (items separated by
-    ``;`` or ``,``) — the JAX package's ``FaultPlan.parse`` rule."""
-    for item in text.replace(",", ";").split(";"):
-        item = item.strip()
-        if not item:
-            continue
-        if "@" not in item:
-            raise ValueError(
-                f"fault spec item {item!r} is not 'kind@at[:count]'")
-        _, _, where = item.partition("@")
-        at, _, count = where.partition(":")
-        try:
-            int(at)
-            int(count) if count else 1
-        except ValueError as e:
-            raise ValueError(f"bad fault spec item {item!r}: {e}") from None
+    ``;`` or ``,``, known kinds only) — the JAX package's
+    ``FaultPlan.parse`` rule, through the port's stdlib-only copy."""
+    from howtotrainyourmamlpytorch_tpu_torch.resilience import faults
+    faults.parse_specs(text)
 
 
 def _parse_compiler_options(pairs) -> Dict[str, str]:

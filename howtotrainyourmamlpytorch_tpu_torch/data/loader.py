@@ -22,9 +22,14 @@ Telemetry: the train feed is metered by :attr:`feed`
 blocked on the next batch against time it spends in its step; with a
 registry, skipped episodes count ``data/corrupt_episodes``.
 
-Not ported yet: mesh placement and multi-host assembly (ROADMAP.md,
-Queue 1: parallel/mesh slice), the elastic pad, and the watchdog and
-fault hooks (resilience/ckpt slice).
+Resilience, at the JAX package's sites: the consumer stamps the watchdog
+phase ``feed`` before it blocks on the next batch (a wait past
+``watchdog_feed_timeout_s`` is a wedged feed); the ``hang_feed`` fault
+sleeps the worker at a train iteration and ``episode_corrupt`` fails the
+first attempt at an episode index (``resilience/faults.py``).
+
+Not ported yet: mesh placement and multi-host assembly and the elastic
+pad (ROADMAP.md, Queue 1: parallel/mesh slice).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from howtotrainyourmamlpytorch_tpu_torch.data.sources import build_source
 from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
                                                         resolve_device)
 from howtotrainyourmamlpytorch_tpu_torch.meta.inner import Episode
+from howtotrainyourmamlpytorch_tpu_torch.resilience import faults, watchdog
 from howtotrainyourmamlpytorch_tpu_torch.telemetry.instruments import (
     FeedStallMeter)
 
@@ -111,6 +117,10 @@ class MetaLearningDataLoader:
         for attempt in range(_MAX_REPLACEMENTS + 1):
             j = int(idx) + attempt * _REPLACEMENT_STRIDE
             try:
+                if attempt == 0 and faults.maybe_fire("episode_corrupt",
+                                                      step=int(idx)):
+                    raise OSError(f"injected corrupt episode at index "
+                                  f"{idx}")
                 return sampler.sample(j)
             except Exception as e:
                 last = e
@@ -175,6 +185,11 @@ class MetaLearningDataLoader:
                 for b in range(num_batches):
                     if abandoned.is_set():
                         return
+                    # A wedged feed (hung mount, dead decoder): the worker
+                    # sleeps past the feed deadline, the consumer blocks
+                    # in q.get with 'feed' stamped, the watchdog trips.
+                    if faults.maybe_fire("hang_feed", step=start_idx + b):
+                        faults.hang()
                     base = (start_idx + b) * batch_size + salt
                     batch = self._sample_batch(
                         sampler, range(base, base + batch_size))
@@ -190,6 +205,8 @@ class MetaLearningDataLoader:
         t.start()
         try:
             while True:
+                # The consumer is about to block on the input pipeline.
+                watchdog.stamp("feed", detail=split)
                 t0 = time.perf_counter()
                 item = q.get()
                 if meter is not None:

@@ -40,14 +40,32 @@ rows, ``logs/PROFILE.json``); a device trace of epoch ``profile_epoch``
 (``profile_dir``); TensorBoard scalars (``use_tensorboard``). Off, each
 costs one ``None`` check where it would act.
 
+Resilience (``resilience/``), at the JAX package's loop points:
+
+* The watchdog and flight recorder are installed for ``run_experiment``
+  iff any ``watchdog_*_timeout_s`` > 0 (the defaults are on). The loop
+  stamps ``step`` per iteration and per eval batch, and a step variant's
+  (or the eval step's) first call runs under ``compile``: it pays for
+  CUDA's lazy init, cuDNN/cuBLAS handles and the first-use ``nvcc``
+  build. The host runs ahead of the card, so a wedged kernel is seen at
+  the loss fetch every ``dispatch_sync_every`` steps, with ``step``
+  stamped, or at a save's encode, under ``ckpt``. A trip writes
+  ``logs/crash_bundle`` and exits 74 (``EXIT_HUNG``).
+* Crash bundles also on a preemption, on an unhandled exception and on
+  a second signal (before ``os._exit(75)``); ``logs/flight.jsonl`` and
+  the flight layer of ``logs/trace.json`` every epoch.
+* Fault injection (``fault_spec`` / ``MAML_FAULTS``; the env wins):
+  ``nan_loss``, ``hang_step`` and ``kill`` at the dispatch-sync point,
+  the storage, checkpoint and loader hooks in their modules.
+* ``ckpt_async=1`` moves the epoch checkpoint's file writes to a
+  background thread (``ckpt/writer.py``), drained before a rewind, the
+  preemption snapshot, the test protocol and the run's end.
+
 Checkpoints, ``state.json``, ``MANIFEST.json``, ``REGISTRY.json`` and the
 CSVs are the JAX package's formats: either package resumes, evaluates or
 serves the other's run. Not ported yet (each raises when set away from its
 default, naming its ROADMAP.md Queue 1 item): the mesh, the AOT store and
-compile cache, the pod fault domain and elastic mode, fault injection and
-the async checkpoint writer. The watchdog and flight recorder (on by
-default in the JAX package) are not ported either: the builder says so
-once at start.
+compile cache, the pod fault domain and elastic mode.
 """
 
 from __future__ import annotations
@@ -79,7 +97,10 @@ from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
     migrate_lslr_rows, reconcile_loaded_shapes, state_leaf_shapes)
 from howtotrainyourmamlpytorch_tpu_torch.models import make_model
 from howtotrainyourmamlpytorch_tpu_torch.resilience import (EXIT_PREEMPTED,
-                                                            DivergenceGuard)
+                                                            DivergenceGuard,
+                                                            faults,
+                                                            flightrec,
+                                                            watchdog)
 from howtotrainyourmamlpytorch_tpu_torch.telemetry import (
     FeedStallMeter, MetricsRegistry, device_memory_stats, emit_heartbeat)
 from howtotrainyourmamlpytorch_tpu_torch.telemetry import alerts as alerts_mod
@@ -93,13 +114,6 @@ from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
     build_experiment_folder, save_statistics, save_to_json)
 from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import (
     JsonlLogger, StepTimer, profile_trace, read_jsonl)
-
-FAULTS_ENV = "MAML_FAULTS"
-WATCHDOG_FIELDS = ("watchdog_step_timeout_s", "watchdog_feed_timeout_s",
-                   "watchdog_collective_timeout_s",
-                   "watchdog_compile_timeout_s", "watchdog_serve_timeout_s",
-                   "watchdog_ckpt_timeout_s")
-
 
 def refuse_unported_knobs(cfg: MAMLConfig) -> None:
     """Raise ``NotImplementedError`` for a knob whose subsystem the port
@@ -119,9 +133,6 @@ def refuse_unported_knobs(cfg: MAMLConfig) -> None:
          "parallel/mesh slice"),
         (bool(cfg.elastic_mode), "elastic_mode (elastic resharding)",
          "parallel/mesh slice"),
-        (bool(cfg.fault_spec or os.environ.get(FAULTS_ENV)),
-         f"fault_spec / {FAULTS_ENV} (fault injection)",
-         "resilience/ckpt slice"),
     )
     for unported, what, item in checks:
         if unported:
@@ -142,6 +153,10 @@ class ExperimentBuilder:
         # is the process's).
         self.registry = MetricsRegistry()
         resilience.set_registry(self.registry)
+        # Fault injection: the env wins over the config; the empty default
+        # clears a previous builder's plan.
+        faults.configure(os.environ.get(faults.ENV_VAR, "")
+                         or cfg.fault_spec)
         self.paths = build_experiment_folder(cfg.experiment_root,
                                              cfg.experiment_name)
         eff_mb = cfg.effective_task_microbatches()
@@ -164,9 +179,11 @@ class ExperimentBuilder:
                                            registry=self.registry)
         self.ckpt = CheckpointManager(self.paths["saved_models"],
                                       max_to_keep=cfg.max_models_to_save)
+        # The async worker thread starts at the first async save, so a
+        # builder that is never run leaks nothing.
         self.ckpt_writer = ckpt_writer.CheckpointWriter(
             self.ckpt, async_saves=bool(cfg.ckpt_async),
-            publish=cfg.ckpt_publish)
+            queue_policy=cfg.ckpt_queue_policy, publish=cfg.ckpt_publish)
         # Size-capped at 64 MiB: one rotation into events.jsonl.1.
         self.jsonl = JsonlLogger(f"{self.paths['logs']}/events.jsonl",
                                  max_bytes=64 * 1024 * 1024)
@@ -197,6 +214,13 @@ class ExperimentBuilder:
         # this session has run: that step counts the phase's FLOPs.
         self._perf: Optional[profiler_mod.PerfSampler] = None
         self._phases_run: set = set()
+        # Watchdog and flight recorder: installed for run_experiment only,
+        # iff any watchdog_*_timeout_s > 0. The eval step's first call
+        # runs under 'compile' as a train phase's does.
+        self._watchdog: Optional[watchdog.Watchdog] = None
+        self._beacon: Optional[watchdog.ProgressBeacon] = None
+        self._flightrec: Optional[flightrec.FlightRecorder] = None
+        self._eval_compile_stamped = False
         self.state = init_train_state(cfg, self.model_init, seed=cfg.seed,
                                       device=self.device)
         self.current_iter = 0
@@ -296,6 +320,11 @@ class ExperimentBuilder:
                     and (self._last_health_iter is None
                          or self.current_iter + 1 - self._last_health_iter
                          >= self._health_every))
+                # Progress beacon: "dispatching train step <iter>". A
+                # variant's first call pays for CUDA's lazy init, the
+                # library handles and the kernel's first-use build, so it
+                # runs under the compile budget instead.
+                watchdog.stamp("step", detail=self.current_iter)
                 first_call = phase_key not in self._phases_run
                 # Perf sampler: one step under the profiler on its
                 # cadence, never a phase's first step (that one counts
@@ -308,14 +337,11 @@ class ExperimentBuilder:
                     self.state, batch, epoch, second_order=second_order,
                     use_msl=use_msl, health=want_health)
                 try:
-                    if first_call and self._perf is not None:
-                        (self.state, metrics), flops = (
-                            profiler_mod.count_flops(step))
-                        self._perf.register_card(
-                            card_name, profiler_mod.build_cost_card(
-                                card_name, flops=flops,
-                                kind=self._perf.kind,
-                                peaks=self._perf.peaks))
+                    if first_call:
+                        with watchdog.phase("compile",
+                                            detail=str(phase_key)):
+                            self.state, metrics = self._first_step(
+                                step, card_name)
                     else:
                         self.state, metrics = step()
                 except BaseException:
@@ -339,8 +365,22 @@ class ExperimentBuilder:
                     # the host runs ahead, so a signal takes effect within
                     # dispatch_sync_every iterations.
                     loss_now = float(metrics.loss)
+                    # Fault hooks and the guard act here, on a scalar
+                    # fetched anyway.
+                    nan_fault = faults.maybe_fire("nan_loss",
+                                                  step=self.current_iter)
+                    if nan_fault:
+                        loss_now = float("nan")
+                    if faults.maybe_fire("hang_step",
+                                         step=self.current_iter):
+                        # A wedged step ('step' is stamped): the watchdog
+                        # must end the process.
+                        faults.hang()
+                    # Health before the guard: a divergence post-mortem
+                    # reads warn -> rewind in log order.
                     if metrics.health is not None:
-                        self._observe_health(metrics.health, epoch)
+                        self._observe_health(metrics.health, epoch,
+                                             nan_fault)
                     if live:
                         live_samples.append((loss_now,
                                              float(metrics.accuracy)))
@@ -352,9 +392,14 @@ class ExperimentBuilder:
                                 f"loss {means[0]:.4f} acc {means[1]:.4f}")
                         print(f"\r{line}" if live_tty else line,
                               end="" if live_tty else "\n", flush=True)
-                    if (self._guard is not None
-                            and self._guard.observe(loss_now,
-                                                    self.current_iter)):
+                    rewind = (self._guard is not None
+                              and self._guard.observe(loss_now,
+                                                      self.current_iter))
+                    if faults.maybe_fire("kill", step=self.current_iter):
+                        # The real preemption path: handler -> flag ->
+                        # snapshot.
+                        signal.raise_signal(signal.SIGTERM)
+                    if rewind:
                         self._rewind_requested = True
                         break
                     if self._preempted:
@@ -366,6 +411,10 @@ class ExperimentBuilder:
             batches.close()
             if prof is not None:
                 prof.__exit__(None, None, None)
+        # The epoch-end wait is for the steps still queued on the card:
+        # the step deadline, not the feed's (the loader stamped 'feed'
+        # before it found the end of the epoch).
+        watchdog.stamp("step", detail=self.current_iter)
         synchronize(self.device)
         if live_tty and live_samples:
             print("\r\x1b[K", end="")  # clear the in-place progress line
@@ -404,13 +453,28 @@ class ExperimentBuilder:
         self._emit_epoch_telemetry(epoch, timer, tsum, stats)
         return stats
 
-    def _observe_health(self, health: Dict[str, torch.Tensor],
-                        epoch: int) -> None:
+    def _first_step(self, step, card_name: str):
+        """A step variant's first call; with the perf sampler on it counts
+        the variant's FLOPs into its cost card."""
+        if self._perf is None:
+            return step()
+        result, flops = profiler_mod.count_flops(step)
+        self._perf.register_card(card_name, profiler_mod.build_cost_card(
+            card_name, flops=flops, kind=self._perf.kind,
+            peaks=self._perf.peaks))
+        return result
+
+    def _observe_health(self, health: Dict[str, torch.Tensor], epoch: int,
+                        nan_fault: bool = False) -> None:
         """Fetch one health snapshot and publish it (``health/*`` gauges,
         one ``health`` row), then feed the outer-grad norm to the early
-        warning."""
+        warning. ``nan_fault``: the ``nan_loss`` fault poisons the
+        observed grad norm too, as a real non-finite outer loss would, so
+        the warning lands before the rewind."""
         self._last_health_iter = self.current_iter
         fetched = health_mod.fetch_health(health)
+        if nan_fault:
+            fetched["grad_norm"] = float("nan")
         health_mod.publish_health(self.registry, self.jsonl, fetched,
                                   iteration=self.current_iter, epoch=epoch)
         grad_norm = float(fetched["grad_norm"])
@@ -446,6 +510,12 @@ class ExperimentBuilder:
                 mem["live_bytes_total"])
             reg.gauge("memory/peak_bytes_max_device").set(
                 mem["peak_bytes_max_device"])
+        # The beacon's age: a stalling run shows on the dashboard before
+        # its watchdog trips.
+        beacon = self._beacon
+        progress_age = beacon.age() if beacon is not None else None
+        if progress_age is not None:
+            reg.gauge(watchdog.PROGRESS_AGE_GAUGE).set(progress_age)
         self.jsonl.log(
             "telemetry", epoch=epoch, iter=self.current_iter,
             step_seconds_p50=tsum.get("p50_step_seconds"),
@@ -461,6 +531,9 @@ class ExperimentBuilder:
         emit_heartbeat(self.jsonl, epoch=epoch, iteration=self.current_iter,
                        local_mean_step_seconds=tsum.get(
                            "mean_step_seconds", 0.0),
+                       progress_age_seconds=progress_age,
+                       progress_phase=(beacon.current()[0]
+                                       if beacon is not None else None),
                        **({"alerts_firing": self._alerts.firing_summary()}
                           if self._alerts is not None else {}))
         self._last_heartbeat_ts = time.time()
@@ -505,7 +578,16 @@ class ExperimentBuilder:
         n_left = self.cfg.num_evaluation_tasks
         losses, accs, logits = [], [], []
         for batch in batches:
-            res = self.eval_step(state, batch)
+            # Eval stamps 'step' too: a validation sweep or the test
+            # protocol can hang like training; its first call pays its
+            # own first-use costs.
+            watchdog.stamp("step", detail="eval")
+            if not self._eval_compile_stamped:
+                self._eval_compile_stamped = True
+                with watchdog.phase("compile", detail="eval"):
+                    res = self.eval_step(state, batch)
+            else:
+                res = self.eval_step(state, batch)
             take = min(n_left, res.loss.shape[0])
             losses.append(res.loss[:take])
             accs.append(res.accuracy[:take])
@@ -523,25 +605,84 @@ class ExperimentBuilder:
         return out
 
     # ------------------------------------------------------------------
+    def _bundle_dir(self) -> str:
+        """Where this run's crash bundles go."""
+        return os.path.join(self.paths["logs"], "crash_bundle")
+
     def run_experiment(self) -> Dict[str, Any]:
         """Train, validate and test under the entry point's numerics
         policy (TF32 off for f32 configs, cuDNN deterministic; restored
-        on return)."""
+        on return), with the watchdog and flight recorder installed for
+        the run when any watchdog deadline is on."""
         cfg = self.cfg
-        if any(getattr(cfg, f) > 0 for f in WATCHDOG_FIELDS):
-            print("watchdog: not ported yet (ROADMAP.md, Queue 1: "
-                  "resilience/ckpt slice); this run has no hang detection "
-                  "and writes no flight recorder", flush=True)
+        deadlines = watchdog.deadlines_from_config(cfg)
+        wd_enabled = any(v > 0 for v in deadlines.values())
+        prev_recorder = prev_beacon = prev_profile = None
+        if wd_enabled:
+            self._flightrec = flightrec.FlightRecorder(
+                cfg.flight_recorder_events)
+            prev_recorder = flightrec.install(self._flightrec)
+            self._beacon = watchdog.ProgressBeacon()
+            prev_beacon = watchdog.install_beacon(self._beacon)
+            self._beacon.stamp("step", detail=self.current_iter)
+            self._watchdog = watchdog.Watchdog(
+                self._beacon, deadlines, bundle_dir=self._bundle_dir(),
+                registry=self.registry, jsonl=self.jsonl,
+                prom_path=f"{self.paths['logs']}/metrics.prom",
+                poll_interval_s=cfg.watchdog_poll_interval_s).start()
+            # Every metrics row shows "0 trips", not a missing counter.
+            self.registry.counter(watchdog.TRIPS_COUNTER)
         if cfg.profile_every_n_steps > 0:
             self._perf = profiler_mod.PerfSampler(
                 cfg.profile_every_n_steps, registry=self.registry,
                 jsonl=self.jsonl, device=self.device)
+            # A crash bundle carries the cost cards once they are on disk.
+            prev_profile = flightrec.register_profile(os.path.join(
+                self.paths["logs"], profiler_mod.PROFILE_FILE))
         try:
             with numerics_policy(cfg.compute_dtype, deterministic=True):
-                return self._run_experiment()
+                result = self._run_experiment()
+            if (self._flightrec is not None
+                    and "preempted_at_iter" in result):
+                # A preemption post-mortem gets the same last-seconds
+                # context a crash gets.
+                flightrec.write_crash_bundle(
+                    self._bundle_dir(), reason="preempted",
+                    info={"iter": self.current_iter},
+                    registry=self.registry)
+            return result
+        except BaseException as e:
+            # Not for SystemExit: an orderly exit carries no mystery.
+            if (self._flightrec is not None
+                    and not isinstance(e, SystemExit)):
+                flightrec.write_crash_bundle(
+                    self._bundle_dir(),
+                    reason=f"exception:{type(e).__name__}",
+                    info={"error": str(e)[:500], "iter": self.current_iter},
+                    registry=self.registry)
+            raise
         finally:
+            # Drain and stop the async writer: an orderly exit leaves
+            # every enqueued save on disk.
+            try:
+                self.ckpt_writer.close()
+            except Exception as e:  # noqa: BLE001 — the run's result
+                # survives a failed final flush; the write-error counter
+                # and warning already reported it.
+                logging.getLogger(__name__).warning(
+                    "checkpoint writer close failed (%s: %s)",
+                    type(e).__name__, e)
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
             if self._perf is not None:
                 self._write_profile_json()
+                flightrec.register_profile(prev_profile)
+            if wd_enabled:
+                watchdog.install_beacon(prev_beacon)
+                flightrec.install(prev_recorder)
+                self._beacon = None
+                self._flightrec = None
             if self._tb is not None:
                 # Release the writer's thread and file handle.
                 self._tb.close()
@@ -620,11 +761,25 @@ class ExperimentBuilder:
 
     def _handle_signal(self, signum=None, frame=None) -> None:
         """First SIGTERM/SIGINT: drain (finish the in-flight step,
-        snapshot 'latest', return). Second while draining: exit 75 now."""
+        snapshot 'latest', return). Second while draining: the drain
+        itself is stuck, so write the crash bundle and exit 75 now."""
         if self._preempted:
             print(f"second signal {signum} while draining: exiting "
                   f"{EXIT_PREEMPTED} without the snapshot", file=sys.stderr,
                   flush=True)
+            try:
+                # Runs on the main thread, possibly inside a stamp or a
+                # registry flush: the recorder's and registry's locks are
+                # reentrant, and any failure here must still reach the
+                # exit.
+                flightrec.record("signal_escalation", signum=signum,
+                                 iter=self.current_iter)
+                flightrec.write_crash_bundle(
+                    self._bundle_dir(), reason="signal_escalation",
+                    info={"signum": signum, "iter": self.current_iter},
+                    registry=self.registry)
+            except Exception:
+                pass
             os._exit(EXIT_PREEMPTED)
         self._preempted = True
 
@@ -636,6 +791,9 @@ class ExperimentBuilder:
         persisted in state.json."""
         self._rewind_requested = False
         cfg = self.cfg
+        # An in-flight async epoch save must be on disk (and a candidate)
+        # before a rewind target is picked.
+        self.ckpt_writer.drain()
         rewinds = int(self.ckpt.meta.get("rewinds", 0)) + 1
         if rewinds > cfg.divergence_max_rewinds:
             raise RuntimeError(
@@ -705,15 +863,22 @@ class ExperimentBuilder:
               f"lr {train_stats['meta_lr']:.2e}", flush=True)
 
     def _flush_timeline(self) -> None:
-        """``logs/trace.json``: a Chrome trace of the tail of the run's
-        events (the flight-ring layer stays empty until the resilience
-        slice). Best-effort: a timeline never stops training."""
+        """``logs/flight.jsonl`` (the flight ring, when the recorder is
+        installed) and ``logs/trace.json``, a Chrome trace of the ring and
+        the tail of the run's events; both bounded windows, so the cost
+        per epoch stays flat. Best-effort: a timeline never stops
+        training."""
         try:
             logs = self.paths["logs"]
+            flight = None
+            if self._flightrec is not None:
+                self._flightrec.dump_jsonl(os.path.join(logs,
+                                                        "flight.jsonl"))
+                flight = self._flightrec.events()
             events = (read_jsonl(self.jsonl.path, tail=4096)
                       if os.path.exists(self.jsonl.path) else None)
             trace_mod.write_trace(os.path.join(logs, "trace.json"),
-                                  events=events)
+                                  events=events, flight=flight)
         except (OSError, ValueError) as e:
             logging.getLogger(__name__).warning(
                 "timeline flush failed (%s: %s)", type(e).__name__, e)
@@ -748,7 +913,10 @@ class ExperimentBuilder:
         per-episode accuracy; write ``test_summary.csv``."""
         cfg = self.cfg
         t0 = time.perf_counter()
-        # Filter by presence: bookkeeping can outlive a file.
+        # Every queued save is on disk before the members are read.
+        self.ckpt_writer.drain()
+        # Filter by presence: bookkeeping can outlive a file (a 'skip'
+        # policy save, an external deletion).
         top = [e for e in self.ckpt.top_epochs(cfg.max_models_to_save)
                if self.ckpt.has_checkpoint(e)]
         per_model_logits, per_model_acc = [], {}

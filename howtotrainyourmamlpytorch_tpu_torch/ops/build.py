@@ -6,7 +6,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``ctypes``. The library's file name carries a hash of the source, so an
 edited kernel rebuilds and a stale library is never loaded. Nothing is
 built when a module is imported: only a kernel launch asks for its
-library.
+library. That first launch falls inside a train step, so a cold build
+runs under the watchdog's ``compile`` phase (its budget,
+``watchdog_compile_timeout_s``, not the step's); a cached load does not.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import threading
 import time
 from dataclasses import dataclass
 from typing import Dict
+
+from howtotrainyourmamlpytorch_tpu_torch.resilience import watchdog
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -69,7 +73,8 @@ def load(name: str) -> Built:
             tmp = f"{path}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with watchdog.phase("compile", detail=f"nvcc:{name}"):
+                proc = subprocess.run(cmd, capture_output=True, text=True)
             seconds = time.perf_counter() - t0
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:

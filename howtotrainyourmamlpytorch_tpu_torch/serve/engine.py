@@ -18,16 +18,35 @@ The request lifecycle:
 The engine runs on one device: the card unless the caller passes
 ``device="cpu"``. Adapt and predict run f32 configs with TF32 off
 (``device.numerics_policy``; cuDNN's algorithm choice is left free).
-Ported so far: the request path above with the L1 cache.
-The L2 tier, AOT warm start, hot-swap/canary, watchdog, request tracing,
+
+Watchdog (``resilience/watchdog.py``): a serving process hangs the ways a
+training one does (a wedged kernel, a stuck transfer). With
+``watchdog_serve_timeout_s > 0`` and no beacon installed in the process
+(a training-owned watchdog wins), the engine installs its own beacon,
+flight recorder and watchdog, writing to
+``<experiment_root>/<experiment_name>/logs/crash_bundle_serve``. Every
+``submit`` and ``step`` runs under a ``serve_request`` scope and
+``warmup`` under ``compile``; each scope restores the previous phase on
+exit, so an idle engine sits in ``idle`` and never trips. The engine's
+own watchdog enforces only the phases the engine stamps
+(``serve_request``, ``compile``): a stamp another layer leaves on the
+shared beacon (a loader's ``feed``) cannot arm it while it idles.
+``close`` (or the engine's collection) stops it and restores the
+process's previous beacon and recorder.
+
+Ported so far: the request path above with the L1 cache, and the
+watchdog. The L2 tier, AOT warm start, hot-swap/canary, request tracing,
 alerts, admission control, continuous batching, the metrics registry and
-``from_checkpoint`` are later work (ROADMAP.md, port queue); the config
-knobs that would turn on one of the behaviour-changing ones raise here.
+``from_checkpoint`` are later work (ROADMAP.md, Queue 1: the engine's
+deferred parts); the config knobs that would turn on one of the
+behaviour-changing ones raise here.
 """
 
 from __future__ import annotations
 
+import os
 import time
+import weakref
 from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -42,6 +61,8 @@ from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
                                                         synchronize)
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import MetaTrainState
 from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+from howtotrainyourmamlpytorch_tpu_torch.resilience import (flightrec,
+                                                            watchdog)
 from howtotrainyourmamlpytorch_tpu_torch.serve.adapt import (
     AdaptedTask, adapt_task, predict_tasks)
 from howtotrainyourmamlpytorch_tpu_torch.serve.batcher import (
@@ -49,6 +70,21 @@ from howtotrainyourmamlpytorch_tpu_torch.serve.batcher import (
 from howtotrainyourmamlpytorch_tpu_torch.serve.cache import (
     AdaptedParamsLRU, support_fingerprint)
 from howtotrainyourmamlpytorch_tpu_torch.tree import index, stack
+
+
+# The phases the engine stamps, which its own watchdog enforces.
+SERVE_PHASES = ("serve_request", "compile")
+
+
+def _release_watchdog(dog, beacon, prev_beacon, recorder,
+                      prev_recorder) -> None:
+    """Stop an engine-owned watchdog and hand the process back its
+    previous beacon and recorder, unless another owner replaced them."""
+    dog.stop()
+    if watchdog.get_beacon() is beacon:
+        watchdog.install_beacon(prev_beacon)
+    if flightrec.get() is recorder:
+        flightrec.install(prev_recorder)
 
 
 @dataclass
@@ -110,6 +146,32 @@ class ServingEngine:
         self.predict_invocations = 0
         self.adapt_seconds: List[float] = []
         self.predict_seconds: List[float] = []
+        self._watchdog: Optional[watchdog.Watchdog] = None
+        self._release = None
+        if (cfg.watchdog_serve_timeout_s > 0
+                and watchdog.get_beacon() is None):
+            recorder = flightrec.FlightRecorder(cfg.flight_recorder_events)
+            prev_recorder = flightrec.install(recorder)
+            beacon = watchdog.ProgressBeacon()
+            beacon.stamp("idle")
+            prev_beacon = watchdog.install_beacon(beacon)
+            deadlines = watchdog.deadlines_from_config(cfg)
+            self._watchdog = watchdog.Watchdog(
+                beacon, {k: deadlines[k] for k in SERVE_PHASES},
+                bundle_dir=os.path.join(cfg.experiment_root,
+                                        cfg.experiment_name, "logs",
+                                        "crash_bundle_serve"),
+                poll_interval_s=cfg.watchdog_poll_interval_s).start()
+            self._release = weakref.finalize(
+                self, _release_watchdog, self._watchdog, beacon,
+                prev_beacon, recorder, prev_recorder)
+
+    def close(self) -> None:
+        """Stop the engine-owned watchdog and restore the process's
+        previous beacon and recorder (idempotent)."""
+        if self._release is not None:
+            self._release()
+            self._watchdog = None
 
     # -- request path ----------------------------------------------------
     def submit(self, req: FewShotRequest,
@@ -117,13 +179,14 @@ class ServingEngine:
         """Enqueue one request; returns its shape bucket. Raises
         BucketError/QueueFullError before any side effect; both
         rejections are counted."""
-        try:
-            bucket = self.batcher.submit(req, now=now)
-        except (QueueFullError, ValueError):
-            self.counters["rejected_total"] += 1
-            raise
-        self.counters["requests_total"] += 1
-        return bucket
+        with watchdog.phase("serve_request", detail="submit"):
+            try:
+                bucket = self.batcher.submit(req, now=now)
+            except (QueueFullError, ValueError):
+                self.counters["rejected_total"] += 1
+                raise
+            self.counters["requests_total"] += 1
+            return bucket
 
     def warmup(self) -> None:
         """Run every configured bucket once on zero requests (builds the
@@ -132,21 +195,32 @@ class ServingEngine:
         h, w, c = self.cfg.image_shape
         dtype = np.uint8 if self.cfg.transfer_images_uint8 else np.float32
         for s_b, q_b in self.batcher.buckets:
-            req = FewShotRequest(
-                support_x=np.zeros((s_b, h, w, c), dtype),
-                support_y=np.zeros((s_b,), np.int32),
-                query_x=np.zeros((q_b, h, w, c), dtype),
-                deadline=float("inf"))
-            batch = pad_group([req], (s_b, q_b), self.cfg.serve_batch_tasks,
-                              self.cfg.image_shape)
-            adapted = self._run_adapt(batch, record=False)
-            self._run_predict([self._entry(adapted, 0)], [req], (s_b, q_b),
-                              record=False)
+            # The first call per bucket pays for the kernel's build and
+            # cuDNN's setup: the compile budget, not the request's.
+            with watchdog.phase("compile", detail=f"serve{(s_b, q_b)}"):
+                req = FewShotRequest(
+                    support_x=np.zeros((s_b, h, w, c), dtype),
+                    support_y=np.zeros((s_b,), np.int32),
+                    query_x=np.zeros((q_b, h, w, c), dtype),
+                    deadline=float("inf"))
+                batch = pad_group([req], (s_b, q_b),
+                                  self.cfg.serve_batch_tasks,
+                                  self.cfg.image_shape)
+                adapted = self._run_adapt(batch, record=False)
+                self._run_predict([self._entry(adapted, 0)], [req],
+                                  (s_b, q_b), record=False)
 
     def step(self, now: Optional[float] = None) -> List[FewShotResponse]:
         """Serve ONE batch: dequeue a same-bucket group, answer expired
         requests with errors, adapt the cache misses (one batch), predict
-        for everyone, respond. Returns [] when idle."""
+        for everyone, respond. Returns [] when idle. Runs under a
+        ``serve_request`` watchdog scope, which restores the beacon's
+        previous phase (an engine-owned beacon's 'idle', or a training
+        run's own phase) on exit."""
+        with watchdog.phase("serve_request", detail=self.batcher.depth):
+            return self._step(now)
+
+    def _step(self, now: Optional[float]) -> List[FewShotResponse]:
         bucket, group, expired = self.batcher.next_group(
             self.cfg.serve_batch_tasks, now=now)
         responses: List[FewShotResponse] = []

@@ -32,10 +32,11 @@ host. All timestamps are unix-epoch microseconds (the ``ts`` field both
 sources already carry), so flight and JSONL layers align on one clock.
 
 Consumers: the port's ``ExperimentBuilder`` flushes ``logs/trace.json``
-per epoch from the tail of its ``events.jsonl``. The flight-ring input
-stays empty until the resilience slice ports the flight recorder
-(ROADMAP.md, Queue 1). A copy of the JAX package's ``telemetry/trace.py``
-(stdlib-only): the same events give the same JSON.
+per epoch from its flight ring and the tail of its ``events.jsonl``, and
+``resilience/flightrec.py § write_crash_bundle`` drops a ``trace.json``
+of the ring into every crash bundle. A copy of the JAX package's
+``telemetry/trace.py`` (stdlib-only): the same events give the same
+JSON.
 """
 
 from __future__ import annotations

@@ -20,9 +20,14 @@ reads.
   resume prefers committed records and quarantines damaged files
   (``*.corrupt``) so they are paid for once; the writer's constructor
   sweeps ``*.tmp`` leftovers and pending records of a killed writer.
-
-The fault-injection hooks and registry counters of the JAX package wait
-for the resilience/ckpt and telemetry slices (ROADMAP.md, Queue 1).
+* The save is split into ``encode`` (host snapshot), ``record_save``
+  (bookkeeping) and ``write_epoch_files`` (all IO), so ``ckpt/writer.py``
+  can run the file half on a background thread; the bytes on disk are
+  the same either way.
+* The JAX package's fault hooks sit where it places them: ``io_write``
+  and ``kill_in_ckpt_write`` (exit 137 after the fsynced tmp, before the
+  rename) in ``_write_bytes_atomic``, ``io_read`` in ``_read_bytes``,
+  ``ckpt_corrupt`` after an atomic write (``resilience/faults.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from howtotrainyourmamlpytorch_tpu_torch.convert import (STATE_FIELDS,
                                                          state_to_jax,
                                                          to_state_dict)
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import MetaTrainState
-from howtotrainyourmamlpytorch_tpu_torch.resilience import counter_inc
+from howtotrainyourmamlpytorch_tpu_torch.resilience import (counter_inc,
+                                                            faults)
 from howtotrainyourmamlpytorch_tpu_torch.resilience.retry import retry_io
 from howtotrainyourmamlpytorch_tpu_torch.tree import tree_leaves
 from howtotrainyourmamlpytorch_tpu_torch.utils import msgpack
@@ -115,6 +121,8 @@ def decode_state(payload: bytes, template_state: MetaTrainState
 
 @retry_io("checkpoint write")
 def _write_bytes_atomic(path: str, data: bytes) -> None:
+    if faults.maybe_fire("io_write"):
+        raise OSError(f"injected io_write fault ({path})")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -122,12 +130,20 @@ def _write_bytes_atomic(path: str, data: bytes) -> None:
         # commit a zero-length or torn tmp under the valid name.
         f.flush()
         os.fsync(f.fileno())
+    if faults.maybe_fire("kill_in_ckpt_write"):
+        # A simulated SIGKILL mid-save: the tmp bytes are durable but the
+        # rename (the commit point) never happens. A restart must resume
+        # from the last committed manifest entry and sweep the tmp and
+        # the pending record. 137: the shell's SIGKILL convention.
+        os._exit(137)
     os.replace(tmp, path)
     manifest_mod.fsync_dir(os.path.dirname(path))
 
 
 @retry_io("checkpoint read")
 def _read_bytes(path: str) -> bytes:
+    if faults.maybe_fire("io_read"):
+        raise OSError(f"injected io_read fault ({path})")
     with open(path, "rb") as f:
         return f.read()
 
@@ -178,6 +194,19 @@ class CheckpointManager:
     def path(self, tag) -> str:
         return os.path.join(self.directory, f"train_model_{tag}.ckpt")
 
+    @staticmethod
+    def _atomic_write(path: str, data: bytes) -> None:
+        _write_bytes_atomic(path, data)
+        # Fault injection only: flip a payload byte in place, so the CRC
+        # check and the quarantine-then-fallback path run end to end.
+        if faults.maybe_fire("ckpt_corrupt"):
+            with open(path, "r+b") as f:
+                size = os.path.getsize(path)
+                f.seek(size // 2)
+                byte = f.read(1)
+                f.seek(size // 2)
+                f.write(bytes([byte[0] ^ 0xFF]))
+
     # -- save -----------------------------------------------------------
     def encode(self, state: MetaTrainState) -> bytes:
         """Host snapshot: fetch + msgpack + MAMLCKP1 framing."""
@@ -195,18 +224,23 @@ class CheckpointManager:
             self.meta["best_val_epoch"] = int(epoch)
 
     def write_epoch_files(self, data: bytes, epoch: int,
-                          current_iter: int, val_acc: float) -> None:
+                          current_iter: int, val_acc: float,
+                          keep=None, meta: Optional[Dict[str, Any]] = None
+                          ) -> None:
         """File half of an epoch save: the epoch checkpoint (manifest
         pending → committed), the 'latest' link, retention pruning and
         ``state.json``. Only the epoch tag's ``begin`` is flushed before
         the write; the commits, the latest record and the prune batch into
-        one durable manifest rewrite at the end."""
+        one durable manifest rewrite at the end. ``keep``/``meta`` freeze
+        an async job's view; the synchronous path passes neither and uses
+        the live bookkeeping."""
+        meta = self.meta if meta is None else meta
         crc = zlib.crc32(data)
         epoch_path = self.path(epoch)
         self.manifest.begin(str(int(epoch)), epoch=int(epoch),
                             iteration=int(current_iter),
                             val_acc=float(val_acc))
-        _write_bytes_atomic(epoch_path, data)
+        self._atomic_write(epoch_path, data)
         self.manifest.commit(str(int(epoch)), nbytes=len(data), crc=crc,
                              flush=False)
         # 'latest' is a hard link to the epoch file (atomic via tmp link +
@@ -227,9 +261,9 @@ class CheckpointManager:
         os.replace(latest_tmp, self.path(LATEST))
         manifest_mod.fsync_dir(self.directory)
         self.manifest.commit(LATEST, nbytes=len(data), crc=crc, flush=False)
-        self._prune(flush=False)
+        self._prune(keep, flush=False)
         self.manifest.flush()
-        save_to_json(self._meta_path, self.meta)
+        save_to_json(self._meta_path, meta)
 
     def save(self, state: MetaTrainState, epoch: int, current_iter: int,
              val_acc: float) -> int:
@@ -248,13 +282,15 @@ class CheckpointManager:
         self.meta["current_iter"] = int(current_iter)
         data = self.encode(state)
         self.manifest.begin(LATEST, iteration=int(current_iter))
-        _write_bytes_atomic(self.path(LATEST), data)
+        self._atomic_write(self.path(LATEST), data)
         self.manifest.commit(LATEST, nbytes=len(data),
                              crc=zlib.crc32(data))
         save_to_json(self._meta_path, self.meta)
 
-    def _prune(self, flush: bool = True) -> None:
-        keep = {int(e) for e in self.top_epochs(self.max_to_keep)}
+    def _prune(self, keep=None, flush: bool = True) -> None:
+        if keep is None:
+            keep = self.top_epochs(self.max_to_keep)
+        keep = {int(e) for e in keep}
         pruned = []
         for name in self._ckpt_files_on_disk():
             tag = name[len("train_model_"):-len(".ckpt")]

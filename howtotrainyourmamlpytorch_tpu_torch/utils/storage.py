@@ -11,7 +11,9 @@ package resumes or reads the other's experiment directory):
 The idempotent whole-file operations (JSON save/load) retry transient IO
 with jittered backoff (``resilience/retry.py``); the append-style CSV
 write is deliberately NOT retried — a retry after a partial append would
-duplicate the row.
+duplicate the row. The ``io_write``/``io_read`` fault hooks sit inside
+the retried bodies (``resilience/faults.py``), so an injected fault is
+recovered by the path a real mount hiccup takes.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 from typing import Any, Dict, List
 
 from howtotrainyourmamlpytorch_tpu_torch.ckpt.manifest import fsync_dir
+from howtotrainyourmamlpytorch_tpu_torch.resilience import faults
 from howtotrainyourmamlpytorch_tpu_torch.resilience.retry import retry_io
 
 
@@ -78,6 +81,8 @@ def load_statistics(logs_dir: str,
 def save_to_json(path: str, obj: Any) -> None:
     """tmp + fsync + rename + best-effort directory fsync: resume depends
     on state.json, so a crash must not leave it torn."""
+    if faults.maybe_fire("io_write"):
+        raise OSError(f"injected io_write fault ({path})")
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         json.dump(obj, f, indent=2)
@@ -89,5 +94,7 @@ def save_to_json(path: str, obj: Any) -> None:
 
 @retry_io("json read")
 def load_from_json(path: str) -> Any:
+    if faults.maybe_fire("io_read"):
+        raise OSError(f"injected io_read fault ({path})")
     with open(path) as f:
         return json.load(f)

@@ -303,23 +303,35 @@ def test_pruning_and_rewind_match_the_jax_manager(tmp_path):
         port.rewind_to(4)
 
 
-def test_writer_publishes_to_the_registry_and_refuses_async(tmp_path):
+@pytest.mark.parametrize("async_saves", [False, True],
+                         ids=["sync", "async"])
+def test_writer_publishes_to_the_registry(tmp_path, async_saves):
     """Each epoch save publishes a live version with the file's
     fingerprint, read by the JAX package's registry; pruned epochs are
-    retired. ``ckpt_async=1`` is not ported and raises."""
+    retired. The async writer (``ckpt_async=1``, the JAX package's
+    ``CheckpointWriter``) publishes from its thread after the files are
+    committed, and writes the bytes the synchronous one writes."""
     from howtotrainyourmamlpytorch_tpu.ckpt.registry import ModelRegistry
     _, js = _random_jax_state(10)
-    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
-    writer = CheckpointWriter(mgr, publish=True)
+    mgr = CheckpointManager(str(tmp_path / "w"), max_to_keep=1)
+    writer = CheckpointWriter(mgr, async_saves=async_saves, publish=True)
     writer.save(_port(js), 0, 5, 0.5)
     writer.save(_port(js), 1, 10, 0.7)
+    writer.close()
     assert writer.last_save_bytes == os.path.getsize(mgr.path(1))
-    reg = ModelRegistry(str(tmp_path))
+    reg = ModelRegistry(str(tmp_path / "w"))
     assert [(v["tag"], v["status"]) for v in reg.versions] == [
         ("0", "retired"), ("1", "live")]
     assert reg.latest()["fingerprint"] == mgr.fingerprint(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CheckpointWriter(mgr, async_saves=True)
+    ref = JaxManager(str(tmp_path / "jax"), max_to_keep=1)
+    ref.save(js, 0, 5, 0.5)
+    ref.save(js, 1, 10, 0.7)
+    for name in ("train_model_1.ckpt", "train_model_latest.ckpt",
+                 "MANIFEST.json", "state.json"):
+        assert ((tmp_path / "w" / name).read_bytes()
+                == (tmp_path / "jax" / name).read_bytes()), name
+    with pytest.raises(ValueError):
+        CheckpointWriter(mgr, async_saves=True, queue_policy="drop")
 
 
 # ---------------------------------------------------------------------------
@@ -459,3 +471,62 @@ def test_event_log_and_step_timer_match_jax(tmp_path):
     ref._durations = list(ours._durations)
     got, want = ours.summary(12), ref.summary(12)
     assert {k: got[k] for k in want} == want
+
+
+def test_async_writer_queue_policies_and_write_errors(tmp_path):
+    """The depth-1 queue (the JAX writer's): with one write in flight and
+    one waiting, a third save is skipped under ``skip`` (counted, its
+    bookkeeping kept) and waits under ``block`` (counted as blocked
+    seconds); a failed background write is counted and warned, and the
+    worker goes on."""
+    import threading
+    import time
+    from howtotrainyourmamlpytorch_tpu_torch import resilience
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import MetricsRegistry
+    _, js = _random_jax_state(11)
+    reg = MetricsRegistry()
+    prev = resilience.set_registry(reg)
+    try:
+        for policy in ("skip", "block"):
+            mgr = CheckpointManager(str(tmp_path / policy), max_to_keep=5)
+            gate, real = threading.Event(), mgr.write_epoch_files
+
+            def gated(*a, **k):
+                gate.wait(10)
+                return real(*a, **k)
+            mgr.write_epoch_files = gated
+            writer = CheckpointWriter(mgr, async_saves=True,
+                                      queue_policy=policy)
+            writer.save(_port(js), 0, 5, 0.5)
+            deadline = time.monotonic() + 5
+            while writer._queue.qsize() and time.monotonic() < deadline:
+                time.sleep(0.01)  # the worker took epoch 0
+            writer.save(_port(js), 1, 10, 0.6)
+            if policy == "skip":
+                with pytest.warns(UserWarning, match="skipped epoch 2"):
+                    writer.save(_port(js), 2, 15, 0.7)
+                gate.set()
+            else:
+                threading.Timer(0.3, gate.set).start()
+                writer.save(_port(js), 2, 15, 0.7)
+            writer.close()
+            on_disk = [e for e in range(3) if mgr.has_checkpoint(e)]
+            assert on_disk == ([0, 1] if policy == "skip" else [0, 1, 2])
+            assert sorted(mgr.meta["iter_at_epoch"]) == ["0", "1", "2"]
+        snap = reg.snapshot()
+        assert snap["ckpt/skipped_saves"] == 1.0
+        assert snap["ckpt/blocked_seconds"] > 0.1
+        mgr = CheckpointManager(str(tmp_path / "err"))
+
+        def broken(*a, **k):
+            raise OSError("disk gone")
+        mgr.write_epoch_files = broken
+        writer = CheckpointWriter(mgr, async_saves=True)
+        with pytest.warns(UserWarning, match="async checkpoint write failed"):
+            writer.save(_port(js), 0, 5, 0.5)
+            writer.drain()
+        assert writer.last_error == "OSError: disk gone"
+        writer.close()
+        assert reg.snapshot()["ckpt/write_errors"] == 1.0
+    finally:
+        resilience.set_registry(prev)

@@ -464,3 +464,82 @@ def test_cli_f32_config_convolves_without_tf32(cuda_device, tmp_path,
         assert not tf32 and not mm_tf32 and deterministic
         assert err < 1e-5, err
     assert after == (True, True, False, True)
+
+
+CARD_RUN = dict(
+    experiment_name="card", dataset_name="synthetic", image_height=12,
+    image_width=12, image_channels=3, num_classes_per_set=3,
+    num_samples_per_class=2, num_target_samples=2, cnn_num_filters=8,
+    num_stages=2, number_of_training_steps_per_iter=2,
+    number_of_evaluation_steps_per_iter=2, batch_size=4,
+    task_microbatches=2, bn_backend="pallas", bn_fast_math=True,
+    total_epochs=2, total_iter_per_epoch=2,
+    first_order_to_second_order_epoch=0, multi_step_loss_num_epochs=1,
+    num_evaluation_tasks=8, max_models_to_save=2, dispatch_sync_every=1)
+# A child that launches a spin kernel after its second train step: the
+# step's loss fetch then waits behind it on the card.
+SPIN_CHILD = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from howtotrainyourmamlpytorch_tpu_torch import experiment, train_maml_system
+real = experiment.make_train_step
+def make(cfg, apply):
+    step, calls = real(cfg, apply), []
+    def spun(*args, **kwargs):
+        out = step(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == 2:
+            torch.cuda._sleep(2 * 10**10)
+        return out
+    return spun
+experiment.make_train_step = make
+sys.exit(train_maml_system.main(["--name_of_args_json_file", sys.argv[2]]))
+"""
+
+
+def test_device_hang_trips_the_watchdog(cuda_device, tmp_path):
+    """A kernel that spins on the card past a 3 s step deadline: the
+    watchdog, whose trip path calls nothing on the card, exits 74 with a
+    bundle while the main thread waits in the loss fetch."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = tmp_path / "hang.json"
+    path.write_text(json.dumps(dict(
+        CARD_RUN, experiment_root=str(tmp_path),
+        watchdog_step_timeout_s=3.0, watchdog_poll_interval_s=0.25)))
+    proc = subprocess.run([sys.executable, "-c", SPIN_CHILD, root,
+                           str(path)], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 74, proc.stderr[-2000:]
+    bundle = tmp_path / "card" / "logs" / "crash_bundle"
+    crash = json.loads((bundle / "crash.json").read_text())
+    assert crash["reason"] == "hung_step"
+    assert 3.0 < crash["age_seconds"] < 3.0 + 2 * 0.25 + 1.0
+    assert {"stacks.txt", "flight.jsonl", "trace.json"} <= set(
+        os.listdir(bundle))
+    assert "in _train_epoch" in (bundle / "stacks.txt").read_text()
+
+
+def test_async_and_sync_saves_write_the_same_bytes(cuda_device, tmp_path):
+    """On the card, a run with ``ckpt_async=1`` leaves the checkpoint
+    files, manifest and bookkeeping of the ``ckpt_async=0`` run, byte for
+    byte."""
+    import os
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import (
+        ExperimentBuilder)
+    files = {}
+    for mode in (0, 1):
+        builder = ExperimentBuilder(MAMLConfig(**dict(
+            CARD_RUN, experiment_root=str(tmp_path / str(mode)),
+            ckpt_async=mode)))
+        assert builder.run_experiment()["num_models"] == 2
+        models = builder.paths["saved_models"]
+        files[mode] = {n: open(os.path.join(models, n), "rb").read()
+                       for n in sorted(os.listdir(models))
+                       if n.endswith(".ckpt")
+                       or n in ("MANIFEST.json", "state.json")}
+    assert len(files[0]) == 5 and files[0] == files[1]

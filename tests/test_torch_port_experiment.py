@@ -413,28 +413,28 @@ def test_get_args_rejects_what_jax_rejects(argv):
     dict(mesh_shape=(1, 2)), dict(aot_store_dir="store"),
     dict(compilation_cache_dir="cache"),
     dict(cluster_collective_timeout_s=5.0),
-    dict(cluster_collective_timeout_s=5.0, elastic_mode=1),
-    dict(fault_spec="nan_loss@1"), "MAML_FAULTS", dict(ckpt_async=1)],
-    ids=lambda k: k if isinstance(k, str) else next(iter(k)))
-def test_unported_knob_raises(knob, tmp_path, monkeypatch):
-    kw = {}
-    if knob == "MAML_FAULTS":
-        monkeypatch.setenv("MAML_FAULTS", "nan_loss@1")
-    else:
-        kw = knob
+    dict(cluster_collective_timeout_s=5.0, elastic_mode=1)],
+    ids=lambda k: next(iter(k)))
+def test_unported_knob_raises(knob, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExperimentBuilder(MAMLConfig(**_kw(tmp_path, **kw)), device="cpu")
+        ExperimentBuilder(MAMLConfig(**_kw(tmp_path, **knob)), device="cpu")
 
 
 @pytest.mark.parametrize("knob", [
     "alert_rules_path", dict(profile_every_n_steps=1),
     dict(profile_dir="prof"), dict(use_tensorboard=True),
-    dict(health_metrics_every_n_steps=1, dispatch_sync_every=1)],
+    dict(health_metrics_every_n_steps=1, dispatch_sync_every=1),
+    dict(fault_spec="io_write@1"), "MAML_FAULTS", dict(ckpt_async=1)],
     ids=lambda k: k if isinstance(k, str) else next(iter(k)))
-def test_ported_knob_builds_and_runs_one_step(knob, tmp_path):
-    """The telemetry slice's knobs no longer raise: a builder with each
-    one set runs one train step (one epoch of one iteration, its
-    validation and test) and writes what the knob asks for."""
+def test_ported_knob_builds_and_runs_one_step(knob, tmp_path, monkeypatch):
+    """The telemetry and resilience slices' knobs no longer raise: a
+    builder with each one set runs one train step (one epoch of one
+    iteration, its validation and test) and does what the knob asks for
+    (an injected write fault is retried; the async writer's files are on
+    disk and its thread stopped)."""
+    if knob == "MAML_FAULTS":
+        monkeypatch.setenv("MAML_FAULTS", "io_write@1")
+        knob = dict(fault_spec="")
     if knob == "alert_rules_path":
         rules = tmp_path / "rules.json"
         rules.write_text(json.dumps({"rules": [
@@ -459,6 +459,14 @@ def test_ported_knob_builds_and_runs_one_step(knob, tmp_path):
             assert json.load(f)["cards"]["train_so1_msl1"]["flops"] > 0
     if name == "profile_dir":
         assert os.path.isfile(tmp_path / "prof" / "epoch0" / "trace.json")
+    if name == "fault_spec":
+        snap = builder.registry.snapshot()
+        assert snap["resilience/io_retries"] == 1.0
+        assert snap["resilience/faults_injected"] == 1.0
+    if name == "ckpt_async":
+        assert builder.ckpt_writer._thread is None
+        assert builder.ckpt.has_checkpoint(0)
+        assert builder.registry.snapshot()["ckpt/saves"] == 1.0
 
 
 def test_run_holds_the_numerics_policy_and_restores_it(tmp_path,

@@ -1,8 +1,10 @@
 """The PyTorch/CUDA port stands alone: import isolation and config parity.
 
-* Every module of ``howtotrainyourmamlpytorch_tpu_torch`` imports in a
-  process where ``jax`` cannot be imported.
-* No module of the port, nor ``chip_smoke.py``, imports ``jax``, ``flax``,
+* Every module of ``howtotrainyourmamlpytorch_tpu_torch``, and the port's
+  chaos harness ``scripts/torch_chaos_run.py``, imports in a process
+  where ``jax`` cannot be imported.
+* No module of the port, nor ``chip_smoke.py`` or
+  ``scripts/torch_chaos_run.py``, imports ``jax``, ``flax``,
   ``optax``, ``msgpack`` or the JAX package — compared on the exact
   top-level module name, since the port's own name begins with the JAX
   package's.
@@ -30,7 +32,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack",
 PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py",
+     os.path.join("scripts", "torch_chaos_run.py")]
 CONFIGS = sorted(os.path.basename(p) for p in glob.glob(
     os.path.join(REPO, "experiment_config", "*.json")))
 
@@ -62,11 +65,18 @@ def test_every_port_module_imports_with_jax_blocked():
         "                                              p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "print(len(mods))\n")
+        "import importlib.util as u\n"
+        "spec = u.spec_from_file_location('chaos',\n"
+        "                                 'scripts/torch_chaos_run.py')\n"
+        "spec.loader.exec_module(u.module_from_spec(spec))\n"
+        "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    mods = set(out.stdout.split())
+    assert len(mods) >= 30
+    assert {f"howtotrainyourmamlpytorch_tpu_torch.resilience.{m}"
+            for m in ("faults", "flightrec", "watchdog")} <= mods
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
