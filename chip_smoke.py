@@ -105,6 +105,25 @@ failure:
    the sync baseline's, the train thread's time in a ResNet-12 save sync
    against async; three steps with the watchdog on against off, bitwise;
    and a cold ``bn_act`` build under a 1 s step deadline without a trip.
+9. The serving plane at the flagship's full width (``serving_plane``),
+   from phase 5's checkpoints through ``ServingEngine.from_checkpoint``:
+   an L1 repeat; the L2 tier (writer-thread publishes, get and put
+   timed, a second engine serving a repeat from it with no adapt, every
+   request traced at rate 1.0 and linked); predict timed with the L2
+   tier on and off on the same requests; a burst past the queue bound
+   with the deadline shed policy and continuous batching on (every
+   request shed, rejected or answered; ``serve/shed_total`` and
+   ``serve/cb_*`` counted); the flush row read by the JAX package's
+   ``scripts/telemetry_report.py``; a hot-swap to a perturbed v2 at the
+   default canary gates (the cache misses after it) and a rollback from
+   a NaN v3 (pinned; v2 still serves); BN-kernel launches equal to the
+   engines' adapt and predict batches. Then
+   ``scripts/torch_fleet_bench.py`` with 2 replica processes on the card
+   (``FLEET_ARGS``): zero dropped through a rolling swap, the rollout
+   ``done``, the migration served from L2 with 0 adapts on its target,
+   each replica's launches equal to its own batches' count, and one
+   fleet answer held against the plain version in process
+   (``LOGITS_COSINE``).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -831,13 +850,10 @@ def _print_sample(label: str, row: dict, card: str) -> None:
           flush=True)
 
 
-def _sampled(label: str, name: str, fn, card: str, bn_kernels: int) -> dict:
-    """Run ``fn`` (one train step of phase card ``name``) under the port's
-    own perf sampler, after counting the same call's FLOPs, as the
-    trainer does with ``profile_every_n_steps``; printed and returned.
-    Fails if the sampler counts an error, its fractions do not sum to 1,
-    or it holds other than the step's ``bn_kernels`` BN-kernel records
-    (it lost device records)."""
+def _sample_window(fn, name: str) -> dict:
+    """One window of the port's perf sampler around ``fn`` (one train
+    step of phase card ``name``), with its FLOPs counted first; the
+    summary row. Fails if the sampler counts an error."""
     from howtotrainyourmamlpytorch_tpu_torch.telemetry import (
         MetricsRegistry)
     from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
@@ -847,7 +863,7 @@ def _sampled(label: str, name: str, fn, card: str, bn_kernels: int) -> dict:
     sampler.register_card(name, profiler.build_cost_card(
         name, flops=flops, kind=sampler.kind, peaks=sampler.peaks))
     if not sampler.start_window(0):
-        raise AssertionError(f"{label}: the sampler did not start")
+        raise AssertionError(f"{name}: the sampler did not start")
     try:
         fn()
     except BaseException:
@@ -856,8 +872,19 @@ def _sampled(label: str, name: str, fn, card: str, bn_kernels: int) -> dict:
     row = sampler.end_window(0, executable=name)
     errors = reg.counter(profiler.ERRORS_COUNTER).value
     if row is None or errors:
-        raise AssertionError(f"{label}: the sampler failed ({errors} "
+        raise AssertionError(f"{name}: the sampler failed ({errors} "
                              f"errors)")
+    return row
+
+
+def _sampled(label: str, name: str, fn, card: str, bn_kernels: int) -> dict:
+    """Run ``fn`` (one train step of phase card ``name``) under the port's
+    own perf sampler, after counting the same call's FLOPs, as the
+    trainer does with ``profile_every_n_steps``; printed and returned.
+    Fails if the sampler counts an error, its fractions do not sum to 1,
+    or it holds other than the step's ``bn_kernels`` BN-kernel records
+    (it lost device records)."""
+    row = _sample_window(fn, name)
     total = (row["device_compute_frac"] + row["device_idle_frac"]
              + row["dispatch_gap_frac"])
     if abs(total - 1) > 1e-6:
@@ -1370,9 +1397,14 @@ def cli_flagship(entry: dict, card: str) -> dict:
         if worst[0] < RESUME_COSINE or rel > RESUME_LOSS_RTOL:
             raise AssertionError("cli: the resumed run disagrees with the "
                                  "uninterrupted one")
+        # Phase 9 serves this run's checkpoints: kept beside the runs.
+        kept = tempfile.mkdtemp(prefix="serve_src_", dir=runs_dir)
+        shutil.copytree(builder.paths["saved_models"],
+                        os.path.join(kept, "saved_models"))
         return {"leaves": {n: t.cpu() for n, t in a.items()},
                 "step": builder.state.step, "launches": launches,
-                "epoch_seconds": per_epoch["epoch_seconds"]}
+                "epoch_seconds": per_epoch["epoch_seconds"],
+                "saved_models": os.path.join(kept, "saved_models")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -1732,12 +1764,29 @@ def _expected_regions(name: str) -> set:
             "inner_msl_target_forward" if msl else "final_target_forward"}
 
 
+def _check_perf_row(r: dict, bn_per_step) -> None:
+    """One ``perf_profile`` row that lost no device records: fractions
+    summing to 1, every label of its step, the step's BN-kernel records
+    and an MFU in (0, 1]."""
+    total = (r["device_compute_frac"] + r["device_idle_frac"]
+             + r["dispatch_gap_frac"])
+    missing = _expected_regions(r["top_executable"]) - set(
+        r["per_region_seconds"])
+    bn = r["per_family_kernels"].get("bn_act")
+    if (abs(total - 1) > 1e-6 or bn != bn_per_step(r["top_executable"])
+            or missing or r["device_records_lost"] or r["mfu"] is None
+            or not 0 < r["mfu"] <= 1):
+        raise AssertionError(f"telemetry: perf row (fractions sum "
+                             f"{total}, regions missing {missing}) {r}")
+
+
 def _check_telemetry_rows(rows, n_epochs: int, n_steps: int,
                           bn_per_step) -> list:
     """Phase 7's checks of a run's ``events.jsonl``; returns the
     ``perf_profile`` rows. ``bn_per_step(name)`` is the BN-kernel
-    launches of one step of phase card ``name``: a sample holds them all,
-    or it lost device records."""
+    launches of one step of phase card ``name``: a sample holds them all
+    unless it lost device records. A row whose ``device_records_lost``
+    is not 0 is left to the caller, which takes that window again."""
     import math
     tele = [r for r in rows if r["event"] == "telemetry"]
     beats = [r for r in rows if r["event"] == "heartbeat"]
@@ -1765,16 +1814,8 @@ def _check_telemetry_rows(rows, n_epochs: int, n_steps: int,
     if not perf:
         raise AssertionError("telemetry: no perf_profile row")
     for r in perf:
-        total = (r["device_compute_frac"] + r["device_idle_frac"]
-                 + r["dispatch_gap_frac"])
-        missing = _expected_regions(r["top_executable"]) - set(
-            r["per_region_seconds"])
-        bn = r["per_family_kernels"].get("bn_act")
-        if (abs(total - 1) > 1e-6 or bn != bn_per_step(r["top_executable"])
-                or missing or r["device_records_lost"] or r["mfu"] is None
-                or not 0 < r["mfu"] <= 1):
-            raise AssertionError(f"telemetry: perf row (fractions sum "
-                                 f"{total}, regions missing {missing}) {r}")
+        if not r["device_records_lost"]:
+            _check_perf_row(r, bn_per_step)
     return perf
 
 
@@ -1884,11 +1925,41 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
         batches = loader.get_train_batches(builder.current_iter, 1)
         batch = next(batches)
         batches.close()
+        state = builder.state
+
+        def phase_of(name):
+            for e in range(cfg.total_epochs):
+                p = dict(second_order=cfg.use_second_order(e),
+                         use_msl=cfg.use_msl(e))
+                if profiler.phase_card_name(**p) == name:
+                    return e, p
+            raise AssertionError(f"telemetry: no epoch runs {name}")
+
+        # A sample that lost device records (the tracer dropped part of
+        # the window) is taken again on a step of the same phase card, at
+        # most twice; a window that lost nothing must pass every check.
+        for r in perf:
+            if not r["device_records_lost"]:
+                continue
+            ep, ph = phase_of(r["top_executable"])
+            for attempt in (1, 2):
+                again = _sample_window(
+                    lambda: builder.train_step(state, batch, ep, **ph),
+                    r["top_executable"])
+                _print_sample(f"telemetry cli sample at iter {r['iter']} "
+                              f"taken again, attempt {attempt}", again, card)
+                if not again["device_records_lost"]:
+                    _check_perf_row(again, bn_per_step)
+                    break
+            else:
+                raise AssertionError(
+                    f"telemetry: the sample at iter {r['iter']} lost "
+                    f"device records three times")
+
         epoch = cfg.total_epochs - 1
         phase = dict(second_order=cfg.use_second_order(epoch),
                      use_msl=cfg.use_msl(epoch))
         name = profiler.phase_card_name(**phase)
-        state = builder.state
 
         def step(health=False):
             return builder.train_step(state, batch, epoch, health=health,
@@ -2370,6 +2441,473 @@ def fault_path(entry: dict, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# Phase 9: the serving plane at the flagship's full width (bf16 +
+# fast-math BN, bn_backend=pallas), served from phase 5's checkpoints:
+# the engine's tiers, tracing, shedding and continuous batching, the
+# metrics row read by the JAX package's report, a hot-swap and a
+# rollback, then scripts/torch_fleet_bench.py with 2 replica processes
+# on the card.
+FLEET_SCRIPT = os.path.join(REPO, "scripts", "torch_fleet_bench.py")
+FLEET_ARGS = ["--device", "cuda", "--replicas", "2", "--config", FLAGSHIP,
+              "--requests", "160", "--tenants", "24", "--l1-capacity", "8"]
+# Phase 9's burst: requests submitted at once to an engine with shedding
+# on, its queue bound, and their deadline after submission in full-batch
+# service times (the shed policy's own estimate): from one queued batch
+# on, the policy's estimate (1.5 x 2 service times) is past it.
+BURST, BURST_DEPTH, BURST_DEADLINE_BATCHES = 32, 16, 2.0
+
+
+def _ms_median(values) -> float:
+    return statistics.median(values) * 1e3
+
+
+def serving_plane(entry: dict, card: str, src: str) -> None:
+    """Phase 9 (see the module docstring); adds the BN kernel's launches
+    in this process and in the fleet's replicas to ``entry``."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.ckpt.registry import (
+        ModelRegistry)
+    from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.serve import (
+        FewShotRequest, QueueFullError, ServingEngine, ShedError, pad_group)
+    from howtotrainyourmamlpytorch_tpu_torch.serve.adapt import (
+        adapt_task, predict_tasks)
+    from howtotrainyourmamlpytorch_tpu_torch.serve.cache import (
+        support_fingerprint)
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import reqtrace
+    from howtotrainyourmamlpytorch_tpu_torch.tree import tree_map
+    from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import (
+        JsonlLogger, read_jsonl)
+
+    runs_dir = os.path.join(REPO, ".smoke_runs")
+    tmp = tempfile.mkdtemp(prefix="serving_", dir=runs_dir)
+    marks = [("start", time.perf_counter())]
+    engines = []
+    try:
+        models = os.path.join(tmp, "saved_models")
+        shutil.copytree(src, models)
+        base = MAMLConfig.from_json_file(FLAGSHIP).replace(
+            bn_backend="pallas", serve_default_deadline_ms=0.0,
+            experiment_root=tmp, serve_l2_dir=os.path.join(tmp, "l2"),
+            serve_registry_poll_s=0.0)
+        h, w, c = base.image_shape
+        n, k = base.num_classes_per_set, base.num_samples_per_class
+        q = base.num_target_per_task
+        rng = np.random.default_rng(base.seed + 9)
+
+        def request(support=None, **kw):
+            sx = (support if support is not None else
+                  rng.integers(0, 256, (n * k, h, w, c), dtype=np.uint8))
+            return FewShotRequest(
+                support_x=sx,
+                support_y=np.repeat(np.arange(n, dtype=np.int32), k),
+                query_x=rng.integers(0, 256, (q, h, w, c), dtype=np.uint8),
+                **kw)
+
+        def check_ok(responses, what):
+            for r in responses:
+                if (r.status != "ok" or r.logits is None
+                        or r.logits.shape != (q, n)
+                        or not np.isfinite(r.logits).all()):
+                    raise AssertionError(
+                        f"serving plane, {what}: request {r.request_id} "
+                        f"{r.status} {r.error}")
+
+        def engine(cfg):
+            t0 = time.perf_counter()
+            eng = ServingEngine.from_checkpoint(cfg, models, device="cuda")
+            engines.append(eng)
+            # Adopts the registry's version of these bytes (or swaps to
+            # it): every engine of the phase serves the same version.
+            eng.maybe_hot_swap(force=True)
+            return eng, time.perf_counter() - t0
+
+        # The engine from the trainer's checkpoint, its L1.
+        bn_act.reset_launches()
+        eng, load_s = engine(base)
+        eng.warmup()
+        reqs = [request() for _ in range(2 * base.serve_batch_tasks)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        served = eng.drain()
+        serve_s = time.perf_counter() - t0
+        check_ok(served, "from_checkpoint")
+        adapts = eng.adapt_invocations
+        eng.submit(request(support=reqs[0].support_x))
+        (hit,) = eng.drain()
+        check_ok([hit], "L1 repeat")
+        if hit.cache_tier != "l1" or eng.adapt_invocations != adapts:
+            raise AssertionError(f"serving plane: repeat tier "
+                                 f"{hit.cache_tier}, adapts {adapts} -> "
+                                 f"{eng.adapt_invocations}")
+        print(f"serving plane: from_checkpoint {load_s:.2f} s (version "
+              f"{eng._model_version}); {len(reqs)} requests in "
+              f"{serve_s:.3f} s; adapt "
+              f"{_ms_median(eng.adapt_seconds):.2f} ms/batch, predict "
+              f"{_ms_median(eng.predict_seconds):.2f} ms/batch (medians of "
+              f"{len(eng.adapt_seconds)}/{len(eng.predict_seconds)}, "
+              f"{base.serve_batch_tasks} tasks, {base.compute_dtype}); L1 "
+              f"repeat served with no adapt ({card})", flush=True)
+
+        # The L2 tier: publishes land, a second engine on the same tier
+        # serves a repeat with no adapt, every request of it traced.
+        if not eng.l2_flush(60.0):
+            raise AssertionError("serving plane: L2 publishes did not land")
+        key = support_fingerprint(reqs[1].support_x, reqs[1].support_y,
+                                  eng.num_adapt_steps,
+                                  context=eng._fp_context)
+        cached = eng.cache.get(key)
+        get_ms, put_ms = [], []
+        for i in range(5):
+            t0 = time.perf_counter()
+            if eng.l2.get(key) is None:
+                raise AssertionError("serving plane: published entry "
+                                     "missing from the L2 tier")
+            get_ms.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            eng.l2.put(f"{i:064x}",
+                       fast=tree_map(lambda t: t.cpu().numpy(),
+                                     cached.fast),
+                       bn_state=tree_map(lambda t: t.cpu().numpy(),
+                                         cached.bn_state))
+            put_ms.append(time.perf_counter() - t0)
+        eng2, _ = engine(base.replace(reqtrace_sample_rate=1.0))
+        traced = [request(support=reqs[1].support_x)] + [
+            request() for _ in range(3)]
+        roots = []
+        for i, r in enumerate(traced):
+            r.trace = reqtrace.mint("phase9", i, 1.0)
+            roots.append((r.trace, time.monotonic()))
+            eng2.submit(r)
+            if i == 0:
+                (l2_hit,) = eng2.drain()
+                if l2_hit.cache_tier != "l2" or eng2.adapt_invocations:
+                    raise AssertionError(
+                        f"serving plane: second engine's repeat tier "
+                        f"{l2_hit.cache_tier}, adapts "
+                        f"{eng2.adapt_invocations}")
+                check_ok([l2_hit], "L2 repeat")
+        check_ok(eng2.drain(), "traced")
+        for ctx, t_sub in roots:
+            reqtrace.record_root(ctx, t_sub, time.monotonic() - t_sub)
+        events = os.path.join(tmp, "events.jsonl")
+        eng2.flush_metrics(JsonlLogger(events), phase="serving_plane",
+                           replica="traced")
+        traces = reqtrace.assemble(
+            r for r in read_jsonl(events)
+            if r["event"] == reqtrace.REQUEST_TRACE_EVENT)
+        if len(traces) != len(traced) or not all(
+                reqtrace.linked(t) for t in traces.values()):
+            raise AssertionError(f"serving plane: {len(traces)} traces, "
+                                 f"linked {[reqtrace.linked(t) for t in traces.values()]}")
+        print(f"serving plane: L2 get {_ms_median(get_ms):.3f} ms, put "
+              f"{_ms_median(put_ms):.3f} ms (device-to-host copy + fsync'd "
+              f"file, medians of 5), publisher queue drops "
+              f"{eng.l2_dropped_publishes}; a second engine served the "
+              f"repeat from L2 with 0 adapts; {len(traces)} traces at "
+              f"sample rate 1.0, all linked ({card})", flush=True)
+
+        # Predict with the L2 tier on and off, on the same requests: the
+        # first engine's two miss batches (the writer publishing beside
+        # them) against an engine with no L2 tier serving the same two,
+        # then three batches of L1 repeats on each (nothing to publish).
+        def repeat(r):
+            return FewShotRequest(support_x=r.support_x,
+                                  support_y=r.support_y, query_x=r.query_x)
+
+        def predict_ms(e, group):
+            n0 = len(e.predict_seconds)
+            for r in group:
+                e.submit(repeat(r))
+            check_ok(e.drain(), "L2 on/off")
+            return [round(s * 1e3, 3) for s in e.predict_seconds[n0:]]
+
+        hits = reqs[:base.serve_batch_tasks]
+        on_miss = [round(s * 1e3, 3) for s in eng.predict_seconds[:2]]
+        on_hit = sum((predict_ms(eng, hits) for _ in range(3)), [])
+        eng_off, _ = engine(base.replace(serve_l2_dir=""))
+        eng_off.warmup()
+        off_miss = predict_ms(eng_off, reqs)
+        off_hit = sum((predict_ms(eng_off, hits) for _ in range(3)), [])
+        print(f"serving plane: predict ms per batch, L2 on: miss batches "
+              f"{on_miss}, L1 repeats {on_hit} (writer idle); L2 off: miss "
+              f"batches {off_miss}, L1 repeats {off_hit} ({card})",
+              flush=True)
+        marks.append(("engine_tiers", time.perf_counter()))
+
+        # Shedding and continuous batching: a burst past the queue bound.
+        eng3, _ = engine(base.replace(
+            serve_l2_dir="", fleet_shed_policy="deadline",
+            serve_continuous_batching=1, serve_max_queue_depth=BURST_DEPTH))
+        for r in [request() for _ in range(base.serve_batch_tasks)]:
+            eng3.submit(r)       # one full batch feeds the shed estimator
+        check_ok(eng3.drain(), "shed warm")
+        svc = eng3.batcher.admission.service_time_s(
+            eng3.batcher.buckets[0])
+        shed = rejected = 0
+        burst = [request() for _ in range(BURST)]
+        deadline = time.monotonic() + BURST_DEADLINE_BATCHES * svc
+        for r in burst:
+            r.deadline = deadline
+            try:
+                eng3.submit(r)
+            except ShedError:
+                shed += 1
+            except QueueFullError:
+                rejected += 1
+        answered = eng3.drain()
+        ok = [r for r in answered if r.status == "ok"]
+        check_ok(ok, "burst")
+        reg3 = eng3.registry
+        eng3._mirror_cache_counters()
+        cb = {name: reg3.counter(f"serve/{name}").value
+              for name in ("cb_groups", "cb_fill_dispatch",
+                           "cb_linger_dispatch")}
+        if (shed + rejected + len(answered) != BURST or not shed
+                or reg3.counter("serve/shed_total").value != shed
+                or not cb["cb_groups"]):
+            raise AssertionError(
+                f"serving plane: burst of {BURST}: shed {shed}, rejected "
+                f"{rejected}, answered {len(answered)}; counters "
+                f"{reg3.snapshot()}")
+        print(f"serving plane: burst of {BURST} (queue bound "
+              f"{BURST_DEPTH}, deadline {BURST_DEADLINE_BATCHES} x the "
+              f"{svc * 1e3:.1f} ms full-batch service estimate, shed policy "
+              f"deadline, continuous batching on): {shed} shed, {rejected} "
+              f"rejected, {len(ok)} served, "
+              f"{len(answered) - len(ok)} missed their deadline; "
+              f"serve/shed_total {reg3.counter('serve/shed_total').value}, "
+              f"{json.dumps(cb)} ({card})", flush=True)
+
+        # The metrics row, read by the JAX package's report.
+        eng.flush_metrics(JsonlLogger(events), phase="serving_plane")
+        report = subprocess.run(
+            [sys.executable, os.path.join(REPO, "scripts",
+                                          "telemetry_report.py"),
+             events, "--json"],
+            capture_output=True, text=True, timeout=120, cwd=REPO)
+        summary = json.loads(report.stdout.strip().splitlines()[-1])
+        serving = summary.get("serving")
+        if (report.returncode != 0 or not isinstance(serving, dict)
+                or serving["responses"] != eng.registry.counter(
+                    "serve/responses_total").value):
+            raise AssertionError(f"serving plane: telemetry_report "
+                                 f"serving section {serving}")
+        print(f"serving plane: telemetry_report serving section "
+              f"{json.dumps(serving)}", flush=True)
+        marks.append(("shed_report", time.perf_counter()))
+
+        # Hot-swap: v2 (a seeded 1e-3 perturbation) passes the canary at
+        # the default gates and is adopted; v3 (a NaN weight) rolls back.
+        manager = CheckpointManager(models, max_to_keep=10)
+        registry = ModelRegistry(models)
+        gen = torch.Generator().manual_seed(base.seed)
+
+        def publish(epoch, params):
+            state = dataclasses.replace(eng.state, params=params)
+            manager.save(state, epoch=epoch, current_iter=epoch,
+                         val_acc=0.5)
+            return registry.publish(tag=str(epoch), epoch=epoch,
+                                    iteration=epoch, val_acc=0.5,
+                                    fingerprint=manager.fingerprint(epoch))
+
+        with torch.no_grad():
+            v2 = publish(2, tree_map(lambda x: x * (1 + 1e-3 * torch.randn(
+                x.shape, generator=gen).to(x.device)), eng.state.params))
+        t0 = time.perf_counter()
+        swap = eng.maybe_hot_swap(force=True)
+        swap_s = time.perf_counter() - t0
+        if not swap or not swap["swapped"] or eng._model_version != v2[
+                "version"]:
+            raise AssertionError(f"serving plane: v2 not adopted: {swap}")
+        adapts = eng.adapt_invocations
+        eng.submit(request(support=reqs[0].support_x))
+        (after,) = eng.drain()
+        check_ok([after], "after the swap")
+        if after.cache_hit or eng.adapt_invocations != adapts + 1:
+            raise AssertionError("serving plane: the cache hit across the "
+                                 "swap")
+        canary = swap["canary"]
+        with torch.no_grad():
+            bad = tree_map(lambda x: x.clone(), eng.state.params)
+            leaf = next(iter(next(iter(bad.values())).values()))
+            leaf.view(-1)[0] = float("nan")
+            v3 = publish(3, bad)
+        t0 = time.perf_counter()
+        roll = eng.maybe_hot_swap(force=True)
+        roll_s = time.perf_counter() - t0
+        again = eng.maybe_hot_swap(force=True)
+        eng.submit(request())
+        check_ok(eng.drain(), "after the rollback")
+        if (not roll or roll["swapped"]
+                or eng.registry.counter("serve/hot_swap_rollbacks").value
+                != 1 or v3["version"] not in eng._rejected_versions
+                or again is not None
+                or eng._model_version != v2["version"]):
+            raise AssertionError(f"serving plane: v3 not rolled back: "
+                                 f"{roll}, then {again}")
+        print(f"serving plane: hot-swap to v{v2['version']} in "
+              f"{swap_s * 1e3:.1f} ms poll to adopt (canary adapt live "
+              f"{canary['live']['adapt_seconds'] * 1e3:.2f} ms, candidate "
+              f"{canary['candidate']['adapt_seconds'] * 1e3:.2f} ms, each "
+              f"warmed first; probe accuracy {canary['live']['accuracy']:.3f}"
+              f" -> {canary['candidate']['accuracy']:.3f}), the repeat "
+              f"missed the cache after it; v{v3['version']} (NaN weight) "
+              f"rolled back in {roll_s * 1e3:.1f} ms "
+              f"({roll['canary']['reason']}), pinned, v{v2['version']} "
+              f"serves finite logits ({card})", flush=True)
+
+        per_forward = _bn_per_forward(base)
+        runs = [(e.adapt_runs, e.predict_runs) for e in engines]
+        want = sum(per_forward * eng.num_adapt_steps * a + per_forward * p
+                   for a, p in runs)
+        launches = bn_act.launches
+        if launches != want:
+            raise AssertionError(
+                f"serving plane: bn_act launched {launches} times, the "
+                f"engines' batches need {want} ({runs} adapt/predict runs)")
+        entry["launches"] += launches
+        print(f"serving plane: bn_act launches {launches} = "
+              f"{per_forward * eng.num_adapt_steps} x adapt + "
+              f"{per_forward} x predict batches over {runs} (warm-ups and "
+              f"canaries included) ({card})", flush=True)
+        for e in engines:
+            e.close()
+        engines.clear()
+        marks.append(("hot_swap", time.perf_counter()))
+
+        # The fleet: 2 replica processes on this card.
+        fleet_out = os.path.join(tmp, "fleet")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, FLEET_SCRIPT, *FLEET_ARGS, "--out", fleet_out],
+            capture_output=True, text=True, timeout=600, cwd=REPO)
+        fleet_s = time.perf_counter() - t0
+        try:
+            art = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            art = {"status": "no artifact", "stderr": proc.stderr[-3000:]}
+        mig = art.get("migration") or {}
+        kern = (art.get("bn_act_launches") or {})
+        if (proc.returncode != 0 or art.get("status") != "ok"
+                or not art.get("zero_dropped")
+                or (art.get("rollout") or {}).get("state") != "done"
+                or mig.get("second_tier") != "l2"
+                or mig.get("target_adapt_delta") != 0):
+            logs = ""
+            for name in sorted(os.listdir(fleet_out)) if os.path.isdir(
+                    fleet_out) else []:
+                if name.endswith(".log"):
+                    with open(os.path.join(fleet_out, name)) as f:
+                        logs += f"--- {name}\n{f.read()[-1500:]}\n"
+            raise AssertionError(f"serving plane: fleet bench rc "
+                                 f"{proc.returncode}: {json.dumps(art)}\n"
+                                 f"{logs}")
+        fleet_launches = 0
+        for leg in ("single", "fleet"):
+            acc = kern.get(leg)
+            if acc is None:
+                continue
+            for rid, k_ in acc["replicas"].items():
+                want_r = (per_forward * eng.num_adapt_steps * k_["adapt_runs"]
+                          + per_forward * k_["predict_runs"])
+                if k_["bn_act_launches"] != want_r:
+                    raise AssertionError(
+                        f"serving plane: {leg} replica {rid} launched "
+                        f"bn_act {k_['bn_act_launches']} times, its "
+                        f"batches need {want_r}: {k_}")
+                fleet_launches += k_["bn_act_launches"]
+                print(f"serving plane: {leg} replica {rid}: bn_act "
+                      f"launches {k_['bn_act_launches']} = "
+                      f"{per_forward * eng.num_adapt_steps} x "
+                      f"{k_['adapt_runs']} adapt + {per_forward} x "
+                      f"{k_['predict_runs']} predict batches; peak memory "
+                      f"{k_['max_memory_allocated'] / 2**30:.2f} GiB "
+                      f"({card})", flush=True)
+        entry["launches"] += fleet_launches
+        single, fleet = art["single"], art["fleet"]
+        print(f"serving plane: fleet bench {fleet_s:.1f} s "
+              f"({' '.join(FLEET_ARGS)}): single leg {single['qps']} req/s "
+              f"p50 {single['p50_ms']} ms p95 {single['p95_ms']} ms; fleet "
+              f"leg {fleet['qps']} req/s p50 {fleet['p50_ms']} ms p95 "
+              f"{fleet['p95_ms']} ms (fleet / single "
+              f"{art['fleet_speedup_vs_single']} at unequal windows: "
+              f"{single['max_outstanding']} requests outstanding in the "
+              f"single leg, {fleet['max_outstanding']} in the fleet leg, "
+              f"over {single['wall_seconds']} s and {fleet['wall_seconds']} "
+              f"s of load; both replicas share the card); L2 hit fraction {art['fleet_l2_hit_frac']}, L1 "
+              f"{fleet['l1_hit_frac']}; rolling swaps "
+              f"{art['fleet_rolling_swaps']}, halts "
+              f"{art['fleet_rolling_swap_halts']}, rollout "
+              f"{json.dumps(art['rollout'])}; spills "
+              f"{art['fleet_router_spills']}; zero dropped; migration "
+              f"{json.dumps(mig)}; replica start-up "
+              f"{json.dumps(art['startup_seconds'])} s ({card})",
+              flush=True)
+
+        # One fleet answer against the plain version on the same
+        # version's checkpoint, in this process.
+        probe = np.load(os.path.join(fleet_out, "fleet_probe.npz"))
+        fleet_models = os.path.join(fleet_out, "saved_models")
+        rec = ModelRegistry(fleet_models).get(int(probe["version"]))
+        fcfg = MAMLConfig.from_json_file(os.path.join(
+            fleet_out, "cfg_fleet.json")).replace(serve_l2_dir="")
+        peng = ServingEngine.from_checkpoint(fcfg, fleet_models,
+                                             tag=int(rec["tag"]),
+                                             device="cuda")
+        engines.append(peng)
+        req = FewShotRequest(support_x=probe["support_x"],
+                             support_y=probe["support_y"],
+                             query_x=probe["query_x"])
+        bucket = peng.batcher.buckets[0]
+        batch = pad_group([req], bucket, fcfg.serve_batch_tasks,
+                          fcfg.image_shape)
+        qx = np.zeros((fcfg.serve_batch_tasks, bucket[1], h, w, c),
+                      np.uint8)
+        qx[:, :req.num_query] = req.query_x
+        dev = torch.device("cuda")
+        st = peng.state
+        ad = adapt_task(fcfg, peng.model_apply, st.params, st.lslr,
+                        st.bn_state,
+                        torch.from_numpy(batch["support_x"]).to(dev),
+                        torch.from_numpy(batch["support_y"]).to(
+                            dev, torch.long),
+                        torch.from_numpy(batch["support_w"]).to(dev),
+                        num_steps=peng.num_adapt_steps, plain=True)
+        lg = predict_tasks(fcfg, peng.model_apply, st.params, ad.fast,
+                           ad.bn_state, torch.from_numpy(qx).to(dev),
+                           num_steps=peng.num_adapt_steps, plain=True)
+        plain = lg[0, :req.num_query].float().cpu()
+        got = torch.from_numpy(probe["logits"]).float()
+        cos = _cosine(got, plain)
+        print(f"serving plane: fleet answer (replica "
+              f"{mig['to_replica']}, tier l2, version {rec['version']}) vs "
+              f"the plain version in process: cosine {cos:.6f}, max abs "
+              f"diff {(got - plain).abs().max().item():.3e} (max |logit| "
+              f"{plain.abs().max().item():.3e}) ({card})", flush=True)
+        if cos < LOGITS_COSINE:
+            raise AssertionError("serving plane: the fleet's answer and the "
+                                 "plain version disagree")
+        marks.append(("fleet", time.perf_counter()))
+        print("phase 9 seconds per part: " + json.dumps(
+            {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}),
+            flush=True)
+    finally:
+        for e in engines:
+            e.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(src), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def _epoch_seconds(logs: str) -> list:
     """A run's epoch seconds from its ``summary_statistics.csv``."""
     from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
@@ -2416,7 +2954,9 @@ def main() -> int:
                         ("backbones", other_backbones),
                         ("telemetry", lambda e, c: cli_telemetry(
                             e, c, results["cli"])),
-                        ("faults", fault_path)):
+                        ("faults", fault_path),
+                        ("serving", lambda e, c: serving_plane(
+                            e, c, results["cli"]["saved_models"]))):
         t1 = time.perf_counter()
         results[name] = phase(entry, card)
         seconds[name] = round(time.perf_counter() - t1, 1)

@@ -1,5 +1,5 @@
-"""Model registry, publish side (the port's copy of the JAX package's
-``ckpt/registry.py § ModelRegistry`` as far as training uses it).
+"""Model registry (the port's copy of the JAX package's
+``ckpt/registry.py § ModelRegistry``).
 
 Training publishes each COMMITTED epoch checkpoint to ``REGISTRY.json``
 next to the checkpoints, with its validation accuracy and the file's
@@ -11,8 +11,11 @@ package's, so either package's server reads a registry the other wrote:
          "status": "live" | "retired" | "rolled_back", "reason",
          "published_ts"}]}
 
-Single-writer by contract (the training process); the poller side
-(``latest``, rollback) is not ported yet. Stdlib only.
+Statuses: ``live`` (servable), ``retired`` (the checkpoint file fell
+out of retention), ``rolled_back`` (an operator withdrew it).
+``latest()`` returns the newest live version: the serving engine's
+hot-swap poll. Single-writer by contract (the training process, or an
+operator's ``rollback``); pollers build fresh instances and never write.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ REGISTRY_FILE = "REGISTRY.json"
 SCHEMA = "maml_model_registry_v1"
 LIVE = "live"
 RETIRED = "retired"
+ROLLED_BACK = "rolled_back"
 
 
 class ModelRegistry:
@@ -67,8 +71,11 @@ class ModelRegistry:
 
     def publish(self, *, tag, epoch: Optional[int] = None,
                 iteration: int = 0, val_acc: Optional[float] = None,
-                fingerprint: Optional[int] = None) -> Dict[str, Any]:
-        """Register one committed checkpoint as a servable version."""
+                fingerprint: Optional[int] = None,
+                directory: Optional[str] = None) -> Dict[str, Any]:
+        """Register one committed checkpoint as a servable version
+        (``directory``: where its file lives, when not beside the
+        registry)."""
         rec = {
             "version": self.next_version,
             "tag": str(tag),
@@ -81,6 +88,8 @@ class ModelRegistry:
             "reason": None,
             "published_ts": time.time(),
         }
+        if directory is not None:
+            rec["directory"] = directory
         self.versions.append(rec)
         self.next_version += 1
         self._write()
@@ -102,3 +111,27 @@ class ModelRegistry:
         if retired:
             self._write()
         return retired
+
+    def rollback(self, version: int, reason: str = "") -> Dict[str, Any]:
+        """Withdraw a published version (an operator's action); pollers
+        treat it as if it had never been published."""
+        rec = self.get(version)
+        if rec is None:
+            raise KeyError(f"no version {version} in {self.path}")
+        rec["status"] = ROLLED_BACK
+        rec["reason"] = reason or "rolled back"
+        self._write()
+        return rec
+
+    def get(self, version: int) -> Optional[Dict[str, Any]]:
+        for rec in self.versions:
+            if int(rec.get("version") or -1) == int(version):
+                return rec
+        return None
+
+    def latest(self) -> Optional[Dict[str, Any]]:
+        """Newest live version by version number (publish order), or
+        None."""
+        live = [r for r in self.versions if r.get("status") == LIVE]
+        return max(live, key=lambda r: int(r.get("version") or 0),
+                   default=None)

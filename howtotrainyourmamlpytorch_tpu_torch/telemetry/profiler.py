@@ -55,6 +55,10 @@ PERF_EVENT = "perf_profile"
 # Host annotation bracketing the sampled window: device records outside
 # its span are not the window's.
 WINDOW_MARKER = "maml_perf_window"
+# The window's last device work: one tiny kernel under this label, just
+# before the closing sync. A complete capture holds its device record;
+# when the tracer drops the window's tail, it is missing.
+WINDOW_TAIL = "maml_perf_window_tail"
 
 # Metric names (the registry naming convention: perf/<name>).
 SAMPLES_COUNTER = "perf/samples"
@@ -311,11 +315,19 @@ def window_records(events: List[Any]) -> Window:
     ranges named in :data:`KNOWN_REGIONS`; the window span is the
     :data:`WINDOW_MARKER` range. ``lost`` counts the runtime calls in the
     span that put work on the device and have no device record: the
-    tracer drops some device records early in a session."""
+    tracer drops some device records early in a session. It may also
+    drop the window's tail, launch records included; a window that holds
+    the :data:`WINDOW_TAIL` label (the sampler's closing sentinel
+    kernel) but no device record launched under it lost its tail, and
+    ``lost`` then also counts the host operators (runtime calls aside)
+    that started after the last recorded launch (the sentinel's among
+    them, so at least one).
+    The sentinel's own kernel is not one of the records."""
     from torch.autograd import DeviceType
     launches: Dict[Tuple[int, int], int] = {}
     labels: List[Tuple[str, int, int]] = []
     window: Optional[Tuple[int, int]] = None
+    tail: Optional[Tuple[int, int]] = None
     device: List[Any] = []
     cpu_ops: List[Any] = []
     for e in events:
@@ -336,6 +348,8 @@ def window_records(events: List[Any]) -> Window:
             name = e.name()
             if name == WINDOW_MARKER:
                 window = (e.start_ns(), e.end_ns())
+            elif name == WINDOW_TAIL:
+                tail = (e.start_ns(), e.end_ns())
             elif name in KNOWN_REGIONS:
                 labels.append((name, e.start_ns(), e.end_ns()))
         elif _activity(e) in ("cpu_op", ""):
@@ -346,9 +360,21 @@ def window_records(events: List[Any]) -> Window:
         records = [(e.name(), e.start_ns(), e.end_ns(), launches.get(key))
                    for e, key in zip(device, keys)]
         recorded = set(keys)
+        in_window = (lambda t: window is None
+                     or window[0] <= t <= window[1])
         lost = sum(1 for key, t in launches.items()
-                   if key not in recorded
-                   and (window is None or window[0] <= t <= window[1]))
+                   if key not in recorded and in_window(t))
+        if tail is not None:
+            in_tail = [r for r in records if r[3] is not None
+                       and tail[0] <= r[3] <= tail[1]]
+            records = [r for r in records if r not in in_tail]
+            if not in_tail:
+                last = max((r[3] for r in records if r[3] is not None),
+                           default=window[0] if window else 0)
+                lost += max(1, sum(1 for e in cpu_ops
+                                   if e.start_ns() > last
+                                   and in_window(e.start_ns())
+                                   and not e.name().startswith("cuda")))
         return Window(records, labels, window, "cuda", lost)
     records = []
     cpu_ops.sort(key=lambda e: (e.start_thread_id(), e.start_ns(),
@@ -523,6 +549,8 @@ class PerfSampler:
         self._last_iter: Optional[int] = None
         # (profiler, marker, t0) while a capture is live.
         self._window: Optional[Tuple[Any, Any, float]] = None
+        # The closing sentinel kernel's tensor (on the card only).
+        self._sentinel: Optional[torch.Tensor] = None
         self._warned = False
         if registry is not None:
             # Eager registration: an armed run reports "0 samples".
@@ -555,6 +583,7 @@ class PerfSampler:
             x.add_(1.0)
             time.sleep(0.001)
         self._sync()
+        self._sentinel = x
 
     def start_window(self, iteration: int) -> bool:
         """Drain the device's queue, then begin the capture; True iff
@@ -609,6 +638,9 @@ class PerfSampler:
         try:
             try:
                 try:
+                    if self._sentinel is not None:
+                        with torch.profiler.record_function(WINDOW_TAIL):
+                            self._sentinel.add_(1.0)
                     self._sync()
                 finally:
                     marker.__exit__(None, None, None)

@@ -543,3 +543,142 @@ def test_async_and_sync_saves_write_the_same_bytes(cuda_device, tmp_path):
                        if n.endswith(".ckpt")
                        or n in ("MANIFEST.json", "state.json")}
     assert len(files[0]) == 5 and files[0] == files[1]
+
+
+def _serve_cfg(tmp_path, **kw):
+    base = dict(dataset_name="synthetic", experiment_root=str(tmp_path),
+                image_height=12, image_width=12, image_channels=3,
+                num_classes_per_set=3, num_samples_per_class=2,
+                num_target_samples=2, cnn_num_filters=8, num_stages=2,
+                number_of_evaluation_steps_per_iter=2, bn_backend="pallas",
+                bn_fast_math=False, compute_dtype="float32",
+                serve_batch_tasks=2, serve_default_deadline_ms=0.0)
+    base.update(kw)
+    return MAMLConfig(**base)
+
+
+def _published_checkpoint(cfg, directory):
+    """Epoch 0 of a seeded state, saved and published as the trainer
+    does; returns the manager."""
+    from howtotrainyourmamlpytorch_tpu_torch.ckpt.registry import (
+        ModelRegistry)
+    from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+    init, _ = make_model(cfg)
+    mgr = CheckpointManager(directory)
+    mgr.save(init_train_state(cfg, init, seed=0, device="cpu"), epoch=0,
+             current_iter=1, val_acc=0.5)
+    ModelRegistry(directory).publish(tag="0", epoch=0, iteration=1,
+                                     val_acc=0.5,
+                                     fingerprint=mgr.fingerprint(0))
+    return mgr
+
+
+def _serve_request(seed, support_seed=None):
+    rng = np.random.default_rng(seed)
+    sx = np.random.default_rng(
+        seed if support_seed is None else support_seed).integers(
+            0, 256, (6, 12, 12, 3), dtype=np.uint8)
+    return FewShotRequest(
+        support_x=sx, support_y=np.arange(6, dtype=np.int32) % 3,
+        query_x=rng.integers(0, 256, (6, 12, 12, 3), dtype=np.uint8))
+
+
+def test_from_checkpoint_on_the_card(cuda_device, tmp_path):
+    """``from_checkpoint`` on the card serves the CPU engine's logits
+    (f32, TF32 off) and launches the kernel as the path needs."""
+    cfg = _serve_cfg(tmp_path)
+    directory = str(tmp_path / "saved_models")
+    _published_checkpoint(cfg, directory)
+    card = ServingEngine.from_checkpoint(cfg, directory, device=cuda_device)
+    cpu = ServingEngine.from_checkpoint(cfg, directory, device="cpu")
+    bn_act.reset_launches()
+    out = []
+    for engine in (card, cpu):
+        engine.submit(_serve_request(1))
+        engine.submit(_serve_request(2))
+        out.append(sorted(engine.drain(), key=lambda r: r.request_id))
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a.logits, b.logits, rtol=1e-4, atol=2e-4)
+    assert bn_act.launches == 2 * 2 * card.adapt_runs + 2 * card.predict_runs
+    assert card.maybe_hot_swap(force=True) is None
+    assert card._model_version == 1
+    card.close()
+    cpu.close()
+
+
+def test_l2_publish_from_the_writer_thread_on_the_card(cuda_device,
+                                                       tmp_path):
+    """Adapted tensors on the card reach the L2 tier from the writer
+    thread; a second engine on the card serves the repeat from it with
+    no adapt, with the first engine's L1-hit logits."""
+    cfg = _serve_cfg(tmp_path, serve_l2_dir=str(tmp_path / "l2"))
+    directory = str(tmp_path / "saved_models")
+    _published_checkpoint(cfg, directory)
+    a = ServingEngine.from_checkpoint(cfg, directory, device=cuda_device)
+    b = ServingEngine.from_checkpoint(cfg, directory, device=cuda_device)
+    a.submit(_serve_request(1))
+    a.drain()
+    assert a.l2_flush(30.0) and a.l2.publishes == 1 and a.l2.errors == 0
+    a.submit(_serve_request(3, support_seed=1))
+    (l1,) = a.drain()
+    b.submit(_serve_request(3, support_seed=1))
+    (l2,) = b.drain()
+    assert (l1.cache_tier, l2.cache_tier) == ("l1", "l2")
+    assert b.adapt_invocations == 0
+    np.testing.assert_allclose(l2.logits, l1.logits, rtol=1e-5, atol=1e-5)
+    a.close()
+    b.close()
+
+
+def test_canary_on_the_card_is_warmed_before_it_is_timed(cuda_device,
+                                                         tmp_path):
+    """A nudged version passes the canary at the default latency gate
+    (3x live): each version's probe batch runs once untimed, then timed
+    (2 adapts + 1 predict per version), and the swap is adopted."""
+    import dataclasses
+    from howtotrainyourmamlpytorch_tpu_torch.ckpt.registry import (
+        ModelRegistry)
+    from howtotrainyourmamlpytorch_tpu_torch.tree import tree_map
+    cfg = _serve_cfg(tmp_path)
+    assert cfg.serve_canary_latency_factor == 3.0
+    directory = str(tmp_path / "saved_models")
+    mgr = _published_checkpoint(cfg, directory)
+    engine = ServingEngine.from_checkpoint(cfg, directory,
+                                           device=cuda_device)
+    engine.warmup()
+    with torch.no_grad():
+        nudged = dataclasses.replace(engine.state, params=tree_map(
+            lambda x: x * 1.001, engine.state.params))
+    mgr.save(nudged, epoch=1, current_iter=2, val_acc=0.6)
+    ModelRegistry(directory).publish(tag="1", epoch=1, iteration=2,
+                                     val_acc=0.6,
+                                     fingerprint=mgr.fingerprint(1))
+    runs = (engine.adapt_runs, engine.predict_runs)
+    out = engine.maybe_hot_swap(force=True)
+    assert out["swapped"] is True, out
+    assert (engine.adapt_runs - runs[0], engine.predict_runs - runs[1]) == (
+        4, 2)
+    assert engine._model_version == 2
+    engine.close()
+
+
+def test_replica_child_on_the_card(cuda_device, tmp_path):
+    """``scripts/torch_fleet_bench.py --quick --device cuda``: 2 replica
+    processes on the card, none dropped, the migration from L2, and each
+    replica's BN-kernel launches equal to its batches' count."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "scripts",
+                                      "torch_fleet_bench.py"),
+         "--quick", "--device", "cuda", "--out", str(tmp_path / "fb")],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    art = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert proc.returncode == 0 and art["status"] == "ok", art
+    assert art["zero_dropped"] and art["migration"]["second_tier"] == "l2"
+    kernels = art["bn_act_launches"]["fleet"]
+    assert kernels["ok"] and kernels["total"] > 0

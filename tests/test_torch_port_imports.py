@@ -3,11 +3,15 @@
 * Every module of ``howtotrainyourmamlpytorch_tpu_torch``, and the port's
   chaos harness ``scripts/torch_chaos_run.py``, imports in a process
   where ``jax`` cannot be imported.
-* No module of the port, nor ``chip_smoke.py`` or
-  ``scripts/torch_chaos_run.py``, imports ``jax``, ``flax``,
-  ``optax``, ``msgpack`` or the JAX package — compared on the exact
-  top-level module name, since the port's own name begins with the JAX
-  package's.
+* No module of the port, nor ``chip_smoke.py``,
+  ``scripts/torch_chaos_run.py`` or ``scripts/torch_fleet_bench.py``,
+  imports ``jax``, ``flax``, ``optax``, ``msgpack`` or the JAX package —
+  compared on the exact top-level module name, since the port's own
+  name begins with the JAX package's — nor names a JAX-package module,
+  or one of the private aliases the JAX package's file-path loaders
+  register, in a string literal: a loader that looks such a name up in
+  ``sys.modules`` would run the JAX package's module in a process that
+  imported it first.
 * The port's own copy of ``MAMLConfig`` resolves every shipped experiment
   JSON to the same values as the JAX package's, field by field.
 """
@@ -16,6 +20,7 @@ import ast
 import dataclasses
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -33,7 +38,14 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
 ) + ["chip_smoke.py",
-     os.path.join("scripts", "torch_chaos_run.py")]
+     os.path.join("scripts", "torch_chaos_run.py"),
+     os.path.join("scripts", "torch_fleet_bench.py")]
+# A dotted JAX-package module name (or the bare package name), and the
+# aliases of the JAX package's file-path loaders.
+JAX_MODULE_NAME = re.compile(
+    r"(?<![\w.])howtotrainyourmamlpytorch_tpu(?:\.\w|$)")
+JAX_ALIASES = ("_maml_fleet_router_sup", "_maml_fleet_retry_sup",
+               "_maml_fleet_reqtrace", "_maml_loadlab_trace")
 CONFIGS = sorted(os.path.basename(p) for p in glob.glob(
     os.path.join(REPO, "experiment_config", "*.json")))
 
@@ -48,10 +60,40 @@ def _imported_top_levels(path):
             yield node.module.split(".")[0]
 
 
+def _jax_names_in_strings(source):
+    """String literals of ``source`` that name a JAX-package module or
+    one of its loader aliases."""
+    out = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if (JAX_MODULE_NAME.search(node.value)
+                    or any(a in node.value for a in JAX_ALIASES)):
+                out.append(node.value)
+    return out
+
+
 @pytest.mark.parametrize("relpath", PORT_FILES)
 def test_no_jax_or_jax_package_import(relpath):
     tops = set(_imported_top_levels(os.path.join(REPO, relpath)))
     assert not tops & FORBIDDEN, f"{relpath} imports {tops & FORBIDDEN}"
+    named = _jax_names_in_strings(open(os.path.join(REPO, relpath)).read())
+    assert not named, f"{relpath} names JAX-package modules: {named}"
+
+
+def test_string_guard_catches_jax_module_names():
+    """The string check flags what the JAX package's fleet loaders use
+    and passes what the port's use (and plain file paths)."""
+    bad = ['_PKG = "howtotrainyourmamlpytorch_tpu.serve.fleet.router"',
+           'importlib.import_module("howtotrainyourmamlpytorch_tpu")',
+           'sys.modules.get("_maml_fleet_router_sup")',
+           'load("_maml_fleet_retry_sup")',
+           'spec("_maml_fleet_reqtrace", p)', 'spec("_maml_loadlab_trace")']
+    good = ['_PKG = "howtotrainyourmamlpytorch_tpu_torch.serve.fleet.router"',
+            '"_maml_torch_fleet_router_sup"',
+            '"howtotrainyourmamlpytorch_tpu/ops/pallas_fused.py:67"',
+            '"""the JAX package ``howtotrainyourmamlpytorch_tpu``."""']
+    assert all(_jax_names_in_strings(src) for src in bad)
+    assert not any(_jax_names_in_strings(src) for src in good)
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -66,9 +108,9 @@ def test_every_port_module_imports_with_jax_blocked():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
-        "spec = u.spec_from_file_location('chaos',\n"
-        "                                 'scripts/torch_chaos_run.py')\n"
-        "spec.loader.exec_module(u.module_from_spec(spec))\n"
+        "for name in ('torch_chaos_run', 'torch_fleet_bench'):\n"
+        "    spec = u.spec_from_file_location(name, f'scripts/{name}.py')\n"
+        "    spec.loader.exec_module(u.module_from_spec(spec))\n"
         "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -77,6 +119,11 @@ def test_every_port_module_imports_with_jax_blocked():
     assert len(mods) >= 30
     assert {f"howtotrainyourmamlpytorch_tpu_torch.resilience.{m}"
             for m in ("faults", "flightrec", "watchdog")} <= mods
+    assert {f"howtotrainyourmamlpytorch_tpu_torch.{m}" for m in (
+        "telemetry.reqtrace", "serve.fleet.l2cache", "serve.fleet.router",
+        "serve.fleet.controller", "serve.fleet.supervisor",
+        "serve.fleet.replica", "serve.loadlab.trace",
+        "serve.loadlab.workloads", "serve.loadlab.replay")} <= mods
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -207,21 +207,23 @@ def test_engine_rejects_off_wire_dtype(engines):
     bad = _req(seed=40)
     bad.support_x = bad.support_x.astype(np.float32) / 255.0
     bad.query_x = bad.query_x.astype(np.float32) / 255.0
-    before = eng.counters["rejected_total"]
+    rejected = eng.registry.counter("serve/rejected_total")
+    before = rejected.value
     with pytest.raises(BucketError, match="dtype"):
         eng.submit(bad)
     assert eng.batcher.depth == 0
-    assert eng.counters["rejected_total"] == before + 1
+    assert rejected.value == before + 1
 
 
 def test_engine_deadline_miss_is_a_failed_response(engines):
     _, eng = engines
-    before = eng.counters["deadline_misses"]
+    misses = eng.registry.counter("serve/deadline_misses")
+    before = misses.value
     eng.submit(_req(seed=50, deadline=time.monotonic() - 1.0))
     (resp,) = eng.step()
     assert resp.status == "failed" and resp.error == "deadline_exceeded"
     assert resp.predictions is None and resp.logits is None
-    assert eng.counters["deadline_misses"] == before + 1
+    assert misses.value == before + 1
 
 
 def test_engine_needs_a_device_unless_cpu_is_asked_for():
@@ -240,15 +242,21 @@ def test_engine_needs_a_device_unless_cpu_is_asked_for():
         ServingEngine(cfg, state, device="cuda")
 
 
-@pytest.mark.parametrize("knob", [{"fleet_shed_policy": "deadline"},
-                                  {"serve_continuous_batching": 1},
-                                  {"serve_l2_dir": "l2"}])
+@pytest.mark.parametrize("knob", [{"aot_store_dir": "aot"},
+                                  {"compilation_cache_dir": "xla_cache"},
+                                  {"aot_store_dir": "aot",
+                                   "compilation_cache_dir": "xla_cache"}])
 def test_engine_refuses_unported_knobs(knob):
+    """The AOT store and the persistent compile cache are not ported
+    (eager PyTorch has no executables): the engine refuses them, naming
+    each knob and the roadmap item, as the trainer does."""
     cfg = MAMLConfig(**_kw(**knob))
     init, _ = make_model(cfg)
     state = init_train_state(cfg, init, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 "
+                                                  "item 7") as err:
         ServingEngine(cfg, state, device="cpu")
+    assert all(k in str(err.value) for k in knob)
 
 
 # The port keeps its own copies of the numpy-only batcher and cache:

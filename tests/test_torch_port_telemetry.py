@@ -509,3 +509,56 @@ def test_window_records_pair_each_kernel_with_its_launch():
     assert row["per_region_seconds"] == pytest.approx({
         "episode_normalize": 0.001, "task_adapt": 0.001,
         "unattributed": 0.001})
+
+
+def _tail_window(tail_recorded):
+    """A window whose step ends in ``meta_update`` and then the sampler's
+    tail sentinel; with ``tail_recorded`` False the tracer dropped the
+    tail: the ``meta_update`` kernels AND their launch records, and the
+    sentinel's, while the host kept its operators and labels."""
+    events = [
+        _Record(prof.WINDOW_MARKER, "cpu", 0, 100 * MS, 1, annotation=True),
+        _Record("task_adapt", "cpu", 1 * MS, 40 * MS, 2, annotation=True),
+        _Record("aten::mul", "cpu", 10 * MS, 11 * MS, 5),
+        _Record("cudaLaunchKernel", "cpu", 10 * MS + 5, 11 * MS, 20, 5),
+        _Record("mul_kernel", "cuda", 12 * MS, 13 * MS, 20, 5),
+        _Record("meta_update", "cpu", 50 * MS, 80 * MS, 3, annotation=True),
+        _Record("aten::add_", "cpu", 55 * MS, 56 * MS, 6),
+        _Record("aten::add_", "cpu", 60 * MS, 61 * MS, 7),
+        _Record(prof.WINDOW_TAIL, "cpu", 90 * MS, 92 * MS, 4,
+                annotation=True),
+        _Record("aten::add_", "cpu", 90 * MS + 10, 91 * MS, 8),
+        _Record("cudaDeviceSynchronize", "cpu", 93 * MS, 99 * MS, 30)]
+    if tail_recorded:
+        events += [
+            _Record("cudaLaunchKernel", "cpu", 55 * MS + 5, 56 * MS, 21, 6),
+            _Record("cudaLaunchKernel", "cpu", 60 * MS + 5, 61 * MS, 22, 7),
+            _Record("cudaLaunchKernel", "cpu", 90 * MS + 20, 91 * MS, 23,
+                    8),
+            _Record("add_kernel", "cuda", 57 * MS, 58 * MS, 21, 6),
+            _Record("add_kernel", "cuda", 62 * MS, 63 * MS, 22, 7),
+            _Record("add_kernel", "cuda", 92 * MS, 93 * MS, 23, 8)]
+    return events
+
+
+@pytest.mark.parametrize("tail_recorded", [True, False])
+def test_window_records_count_a_dropped_tail(tail_recorded):
+    """A complete window holds the tail sentinel's kernel (left out of the
+    records) and lost nothing. When the tracer dropped the step's tail,
+    launches included, the missing sentinel shows it, and ``lost``
+    counts the host operators after the last recorded launch (the two
+    ``meta_update`` adds and the sentinel's own; the closing sync is a
+    runtime call, not one of them): the every-label check
+    then sees a window that lost records, not a step without
+    ``meta_update``."""
+    win = prof.window_records(_tail_window(tail_recorded))
+    names = [r[0] for r in win.records]
+    if tail_recorded:
+        assert win.lost == 0
+        assert names == ["mul_kernel", "add_kernel", "add_kernel"]
+        row = prof.summarize_records(win.records, win.labels, win.span, 0.1)
+        assert set(row["per_region_seconds"]) == {"task_adapt",
+                                                  "meta_update"}
+    else:
+        assert win.lost == 3
+        assert names == ["mul_kernel"]

@@ -145,7 +145,8 @@ PHASES = ["step", "feed", "collective", "compile", "serve_request", "ckpt",
 
 
 @pytest.mark.parametrize("deadlines", DEADLINES)
-def test_watchdog_check_and_poll_match_jax(deadlines, tmp_path):
+def test_watchdog_check_and_poll_match_jax(deadlines, tmp_path,
+                                           monkeypatch):
     ours = watchdog.Watchdog(watchdog.ProgressBeacon(), deadlines,
                              bundle_dir=str(tmp_path))
     ref = jwatchdog.Watchdog(jwatchdog.ProgressBeacon(), deadlines,
@@ -158,8 +159,12 @@ def test_watchdog_check_and_poll_match_jax(deadlines, tmp_path):
                 == jwatchdog.Watchdog(ref.beacon, deadlines, bundle_dir="x",
                                       poll_interval_s=poll).poll_interval_s)
     for phase in PHASES:
-        ours.beacon.stamp(phase, detail=3)
-        ref.beacon.stamp(phase, detail=3)
+        # Both beacons stamp the same instant, so ``now - stamp`` rounds
+        # alike in both packages at every age.
+        with monkeypatch.context() as m:
+            m.setattr(time, "monotonic", lambda: 5000.0 + len(phase))
+            ours.beacon.stamp(phase, detail=3)
+            ref.beacon.stamp(phase, detail=3)
         assert ours.deadline_for(phase) == ref.deadline_for(phase)
         for age in (0.0, 0.05, 1.0, 2.0, 2.5, 5.0, 5.5, 10.0, 11.0, 1e4):
             got = ours.check(now=ours.beacon.current()[1] + age)
