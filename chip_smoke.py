@@ -17,7 +17,9 @@ failure:
    version; forward outputs and statistics at the eval step's four stages
    (24 tasks: 1152 channels); the same at ResNet-12's shapes and slopes
    (0.1 and 1.0): gradients too at its training shapes (one task:
-   64/160/320/640 channels at 84/42/21/10), forward outputs and statistics
+   64/160/320/640 channels at 84/42/21/10; and the batched MSL target
+   forward's five instances: 5 x 48 and 5 x 64/160/320/640 channels),
+   forward outputs and statistics
    at its eval (16 tasks) and serving (8 tasks) shapes; forward outputs
    at one row, fewer rows than SMs, rows not a multiple of the SM count
    and an unaligned view; two
@@ -51,7 +53,13 @@ failure:
    change only the BN backward or only the statistics' rounding and
    beside the control, bf16 against f32; then a profiled second-order
    step split by kernel family, and one second-order step per remat
-   variant (time, peak memory).
+   variant ('block_outs', off, 'nothing', 'conv_outs', 'dots': time, peak
+   memory, launches as derived; each variant's f32 meta-gradient against
+   'block_outs' under deterministic cuDNN, bitwise expected, else held
+   to ``F32_FLOORS``); then one first-order MSL step under
+   ``msl_target_batching`` 'auto' and 'on' (launches 180 and 72 per BN
+   layer, time, peak memory, the sampler's idle share; the f32
+   meta-gradient 'on' against 'auto' held to ``F32_FLOORS``).
 5. The trainer's CLI at the flagship's full width, in process:
    ``train_maml_system.main`` on the flagship JSON with ``--bn_backend
    pallas`` and overrides that cut only the run's length (``CLI_ARGS``: 2
@@ -76,7 +84,10 @@ failure:
    for that path (6144) and the checks of phase 5; on its state, timed and
    profiled second-order steps and eval batches, one second-order
    meta-gradient kernel vs plain (f32 held to ``R12_F32_FLOORS``, bf16 and
-   the bf16-vs-f32 control read), 8 requests through ``ServingEngine``
+   the bf16-vs-f32 control read), one second-order MSL step under
+   ``msl_target_batching`` 'auto' and 'on' (launches as derived, time,
+   peak memory, the bf16 meta-gradients' cosine), 8 requests through
+   ``ServingEngine``
    (launches held, logits kernel vs plain held to ``R12_SERVE_COSINE``
    beside the f32 control); then the sinusoid JSON (the MLP, regression:
    a finite ``test_mse_mean``) and the omniglot JSON with layer norm
@@ -124,6 +135,17 @@ failure:
    each replica's launches equal to its own batches' count, and one
    fleet answer held against the plain version in process
    (``LOGITS_COSINE``).
+10. The data path (``data_path``): MAMLPACK1 shards at mini-ImageNet's
+   split geometry (64/16/20 classes x 600 images of 84x84x3, seeded
+   uint8, ~1.27 GB) written with the port's ``write_shard`` under
+   ``.smoke_runs/``, every class CRC verified, the open timed, the first
+   train batch from the pack bitwise the one from an ``ArraySource`` over
+   the same arrays; the flagship CLI in process on the shards under
+   ``msl_target_batching='on'`` and ``remat_policy='conv_outs'``
+   (``PACK_CLI_ARGS``, phase 5's length cuts) with exactly the derived
+   launches, the pack's metrics in ``metrics.prom`` and
+   ``feed_stall_frac`` reported; ``scripts/torch_telemetry_report.py``
+   over the run counting its steps.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -166,6 +188,10 @@ SMALL = (((1, 384), 0), ((100, 384), 0), ((1000, 384), 0), ((3001, 384), 1))
 TRAIN_SHAPES = [(SHOTS * hw * hw, FILTERS) for hw in STAGE_HW]
 EVAL_TASKS = 24
 EVAL_SHAPES = [(SHOTS * hw * hw, EVAL_TASKS * FILTERS) for hw in STAGE_HW]
+# Batched MSL targets (msl_target_batching='on'): one target forward over
+# K=5 instances per one-task microbatch, so P = K x 48 at every VGG stage.
+MSL_STEPS = 5
+MSL_SHAPES = [(SHOTS * hw * hw, MSL_STEPS * FILTERS) for hw in STAGE_HW]
 # Outer steps timed per training phase, after one warm-up step.
 TRAIN_STEPS = 3
 # Phase 5: the CLI's overrides of the flagship JSON (length only), and the
@@ -197,6 +223,8 @@ R12_TRAIN_SHAPES = [(SHOTS * hw * hw, c) for hw, c in R12_BLOCKS]
 R12_EVAL_SHAPES = [(SHOTS * hw * hw, R12_EVAL_TASKS * c)
                    for hw, c in R12_BLOCKS]
 R12_SERVE_SHAPES = [(SHOTS * hw * hw, TASKS * c) for hw, c in R12_BLOCKS]
+# ResNet-12's batched MSL target forward: K=5 instances of one task.
+R12_MSL_SHAPES = [(SHOTS * hw * hw, MSL_STEPS * c) for hw, c in R12_BLOCKS]
 # Phase 6: overrides of the pod JSON that only map the pod onto one card
 # (each chip's share of the pod's 256 tasks in 8 microbatches is 8 tasks,
 # one per chunk) and cut the run's length; the BN-kernel launches that
@@ -373,7 +401,9 @@ def check_bn_act(device_name: str, card: str) -> dict:
     stages = []
     grad_cases = ([(sh, (0.0, 0.1, 1.0))
                    for sh in SHAPES + TRAIN_SHAPES + list(RAGGED)]
-                  + [(sh, R12_SLOPES) for sh in R12_TRAIN_SHAPES])
+                  + [(sh, R12_SLOPES) for sh in R12_TRAIN_SHAPES]
+                  + [(sh, (0.0,)) for sh in MSL_SHAPES]
+                  + [(sh, R12_SLOPES) for sh in R12_MSL_SHAPES])
     for (r, p), slopes in grad_cases:
         for dtype in (torch.bfloat16, torch.float32):
             for slope in slopes:
@@ -436,7 +466,9 @@ def check_bn_act(device_name: str, card: str) -> dict:
     print(f"bn_act checks passed: {len(grad_cases)} shapes, {n_cases} "
           f"(shape, dtype, slope) cases (forward, statistics, gradients; "
           f"ResNet-12's training shapes {R12_TRAIN_SHAPES} at slopes "
-          f"{R12_SLOPES}), forward max abs err bf16 "
+          f"{R12_SLOPES}; batched-MSL shapes VGG {MSL_SHAPES} at slope 0 "
+          f"and ResNet-12 {R12_MSL_SHAPES} at slopes {R12_SLOPES}), "
+          f"forward max abs err bf16 "
           f"{max_err[torch.bfloat16]:.3e}, f32 {max_err[torch.float32]:.3e}",
           flush=True)
     fwd_cases = ([(sh, (0.0, 0.1, 1.0)) for sh in EVAL_SHAPES]
@@ -487,7 +519,10 @@ def check_bn_act(device_name: str, card: str) -> dict:
                                     ("serve", R12_SERVE_SHAPES))
                for sh in shapes for slope in R12_SLOPES]
             + [("resnet12", "eval", R12_EVAL_SHAPES[-1], 0.1,
-                torch.float32)])
+                torch.float32)]
+            + [("vgg", "train msl on", sh, 0.0, bf16) for sh in MSL_SHAPES]
+            + [("resnet12", "train msl on", sh, slope, bf16)
+               for sh in R12_MSL_SHAPES for slope in R12_SLOPES])
     for model, path, (r, p), slope, dtype in rows:
         x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
              + 0.3).to(dtype)
@@ -906,7 +941,8 @@ def _dead_bias(name: str) -> bool:
     return "conv" in name.split("/")[1] and name.endswith("/b")
 
 
-def _compare_meta_gradients(label: str, a, b, floors, card: str):
+def _compare_meta_gradients(label: str, a, b, floors, card: str,
+                            what: str = "one second-order meta-gradient"):
     """Print loss, whole-vector and per-leaf cosines of two ``(loss,
     {leaf: vector})`` meta-gradients; returns the floors missed.
     ``floors`` is ``(loss rtol, whole cosine, leaf cosine)``, or None for
@@ -918,7 +954,7 @@ def _compare_meta_gradients(label: str, a, b, floors, card: str):
     held = {n: v for n, v in leaf_cos.items() if not _dead_bias(n)}
     worst = min((v, n) for n, v in held.items())
     rel = abs(la - lb) / abs(lb)
-    print(f"train {label}, one second-order meta-gradient: loss {la:.6f} "
+    print(f"train {label}, {what}: loss {la:.6f} "
           f"vs {lb:.6f} (rel {rel:.2e}), whole-vector cosine {whole:.6f}, "
           f"worst held leaf {worst[1]} {worst[0]:.6f}; leaves "
           f"{json.dumps({n: round(v, 6) for n, v in leaf_cos.items()})} "
@@ -963,8 +999,6 @@ def train_flagship(entry: dict, card: str) -> None:
     train_step = make_train_step(cfg, apply)
     micro = cfg.effective_task_microbatches()
     s, k = cfg.num_stages, cfg.number_of_training_steps_per_iter
-    remat = 2 if (cfg.remat_inner_steps
-                  and cfg.remat_policy == "block_outs") else 1
     print(f"train: {cfg.batch_size} tasks/step in {micro} microbatches, "
           f"K={k}, {cfg.compute_dtype}, bn_fast_math={cfg.bn_fast_math}, "
           f"clamp {cfg.clamp_meta_grad_value}, remat "
@@ -978,9 +1012,10 @@ def train_flagship(entry: dict, card: str) -> None:
         # Every forward launches the kernel once per stage: K support
         # forwards, K target forwards under MSL (else 1), and remat
         # 'block_outs' recomputes each target forward once in the
-        # backward. Flagship: 12 x 4 x (5 + 5 x 2) = 720 (first order +
-        # MSL), 12 x 4 x (5 + 1 x 2) = 336 (second order).
-        per_step = micro * s * (k + (k if msl else 1) * remat)
+        # backward (_forwards_per_chunk). Flagship: 12 x 4 x (5 + 5 x 2)
+        # = 720 (first order + MSL), 12 x 4 x (5 + 1 x 2) = 336 (second
+        # order).
+        per_step = micro * s * _forwards_per_chunk(cfg, so, msl)
         torch.cuda.reset_peak_memory_stats()
         bn_act.reset_launches()
         times, metrics = [], []
@@ -1148,35 +1183,174 @@ def train_flagship(entry: dict, card: str) -> None:
               lambda: train_step(state, spare, 41, **so_step), card)
     _sampled("train profile, one second-order step", "train_so1_msl0",
              lambda: train_step(state, spare, 41, **so_step), card,
-             bn_kernels=micro * s * (k + remat))
+             bn_kernels=micro * s * _forwards_per_chunk(cfg, True, False))
     _deterministic_cost("train, one second-order step",
                         lambda: train_step(state, spare, 41, **so_step),
                         card, turns=("off", "on", "on", "off"))
 
     # Remat: one second-order step, timed and its peak memory, per
-    # variant, in turns.
-    variants = {"block_outs": cfg,
-                "off": cfg.replace(remat_inner_steps=False),
-                "nothing": cfg.replace(remat_policy="nothing")}
-    steps = {name: make_train_step(vcfg, apply)
-             for name, vcfg in variants.items()}
-    found = {name: ([], []) for name in variants}
-    for name in ("block_outs", "off", "nothing", "nothing", "off",
-                 "block_outs"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        steps[name](state, spare, 41, **so_step)
-        torch.cuda.synchronize()
-        found[name][0].append((time.perf_counter() - t0) * 1e3)
-        found[name][1].append(torch.cuda.max_memory_allocated() / 2**30)
-    print("train remat, one second-order step: " + "; ".join(
-        f"{name} {min(ms):.1f} ms (runs {[round(v, 1) for v in ms]}), peak "
-        f"{max(gib):.2f} GiB" for name, (ms, gib) in found.items())
-        + f" ({card})", flush=True)
+    # variant, in turns, its launches held to the derived count; then
+    # each variant's f32 meta-gradient against 'block_outs' under the
+    # trainer's numerics policy (deterministic cuDNN).
+    launches, missed = _remat_variants("flagship", cfg, apply, state,
+                                       spare, 41, so_step, card, F32_FLOORS)
+    entry["launches"] += launches
+    failures += missed
+
+    # Batched MSL targets: one first-order MSL step under 'auto' and 'on'
+    # on the same state and batch.
+    launches, missed = _msl_batching("flagship", cfg, apply, state, spare,
+                                     0, card, F32_FLOORS)
+    entry["launches"] += launches
+    failures += missed
     if failures:
         raise AssertionError("kernel and plain version disagree: "
                              + "; ".join(failures))
+
+
+REMAT_VARIANTS = ("block_outs", "off", "nothing", "conv_outs", "dots")
+
+
+def _remat_variants(label: str, cfg, apply, state, batch, epoch, phase,
+                    card: str, floors):
+    """One train step per remat variant (``REMAT_VARIANTS``), timed in
+    turns with its peak memory, each launching the BN kernel as
+    :func:`_forwards_per_chunk` derives; then every variant's f32
+    meta-gradient against 'block_outs' under the trainer's numerics
+    policy (TF32 off, deterministic cuDNN): bitwise equal is expected,
+    ``floors`` gate it otherwise. Returns (launches, failures)."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.device import numerics_policy
+    from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
+        make_meta_gradients, make_train_step)
+    from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
+
+    def variant(c, name):
+        return (c.replace(remat_inner_steps=False) if name == "off"
+                else c.replace(remat_inner_steps=True, remat_policy=name))
+    steps = {n: make_train_step(variant(cfg, n), apply)
+             for n in REMAT_VARIANTS}
+    want = {n: cfg.effective_task_microbatches() * _bn_per_forward(cfg)
+            * _forwards_per_chunk(variant(cfg, n), **phase)
+            for n in REMAT_VARIANTS}
+    found = {n: ([], []) for n in REMAT_VARIANTS}
+    launches, failures = 0, []
+    for name in REMAT_VARIANTS + REMAT_VARIANTS[::-1]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bn_act.reset_launches()
+        t0 = time.perf_counter()
+        steps[name](state, batch, epoch, **phase)
+        torch.cuda.synchronize()
+        found[name][0].append((time.perf_counter() - t0) * 1e3)
+        found[name][1].append(torch.cuda.max_memory_allocated() / 2**30)
+        launches += bn_act.launches
+        if bn_act.launches != want[name]:
+            failures.append(f"{label} remat {name}: bn_act launched "
+                            f"{bn_act.launches} times, derived {want[name]}")
+    print(f"{label} remat, one {profiler.phase_card_name(**phase)} step: "
+          + "; ".join(
+        f"{n} {min(ms):.1f} ms (runs {[round(v, 1) for v in ms]}), peak "
+        f"{max(gib):.2f} GiB, bn_act {want[n]} launches"
+        for n, (ms, gib) in found.items()) + f" ({card})", flush=True)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    _, apply32 = make_model(cfg32)
+    grads = {}
+    with numerics_policy("float32", deterministic=True):
+        for name in REMAT_VARIANTS:
+            loss, _, _, _, g = make_meta_gradients(
+                variant(cfg32, name), apply32)(state, batch, epoch, **phase)
+            grads[name] = (float(loss), _leaf_vectors(g))
+    ref_loss, ref = grads["block_outs"]
+    for name in REMAT_VARIANTS[1:]:
+        loss, got = grads[name]
+        bitwise = loss == ref_loss and all(
+            torch.equal(got[n], ref[n]) for n in ref)
+        diff = max(float((got[n] - ref[n]).abs().max()) for n in ref)
+        print(f"{label} remat {name} vs block_outs, f32 meta-gradient "
+              f"under deterministic cuDNN: bitwise {bitwise}, largest "
+              f"difference {diff:.3e}, whole cosine "
+              f"{_cosine(_cat(got), _cat(ref)):.9f} ({card})", flush=True)
+        if not bitwise:
+            failures += _compare_meta_gradients(
+                f"{label} remat {name} vs block_outs f32", grads[name],
+                grads["block_outs"], floors, card)
+    return launches, failures
+
+
+def _msl_batching(label: str, cfg, apply, state, batch, epoch, card: str,
+                  floors, second_order: bool = False, sample: bool = True):
+    """One MSL train step under ``msl_target_batching`` 'auto' and 'on' on
+    the same state and batch: launches held to the derived counts, time
+    (in turns), peak memory and, with ``sample``, the idle share of the
+    port's sampler for each; then the meta-gradient 'on' against 'auto',
+    in f32 held to ``floors`` (None: the step's dtype, read only).
+    Returns (launches, failures)."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
+        make_meta_gradients, make_train_step)
+    from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
+
+    phase = dict(second_order=second_order, use_msl=True)
+    modes = ("auto", "on")
+    cfgs = {m: cfg.replace(msl_target_batching=m) for m in modes}
+    steps = {m: make_train_step(cfgs[m], apply) for m in modes}
+    layers = _bn_per_forward(cfg)
+    want = {m: cfg.effective_task_microbatches() * layers
+            * _forwards_per_chunk(cfgs[m], **phase) for m in modes}
+    ms = {m: [] for m in modes}
+    peak = {m: 0.0 for m in modes}
+    launches, failures = 0, []
+    for m in modes + modes[::-1] + (modes if sample else ()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bn_act.reset_launches()
+        t0 = time.perf_counter()
+        steps[m](state, batch, epoch, **phase)
+        torch.cuda.synchronize()
+        ms[m].append((time.perf_counter() - t0) * 1e3)
+        peak[m] = max(peak[m], torch.cuda.max_memory_allocated() / 2**30)
+        launches += bn_act.launches
+        if bn_act.launches != want[m]:
+            failures.append(f"{label} msl {m}: bn_act launched "
+                            f"{bn_act.launches} times, derived {want[m]}")
+    name = profiler.phase_card_name(**phase)
+    idle = {m: float("nan") for m in modes}
+    for m in modes if sample else ():
+        row = _sample_window(lambda: steps[m](state, batch, epoch, **phase),
+                             name)
+        idle[m] = 1 - row["device_compute_frac"]
+        _print_sample(f"{label} msl_target_batching={m!r}, one {name} step",
+                      row, card)
+    print(f"{label} msl_target_batching, one {name} step: " + "; ".join(
+        f"{m!r} {statistics.median(ms[m][1:]):.1f} ms (median after a "
+        f"warm-up, runs {[round(v, 1) for v in ms[m]]}), peak "
+        f"{peak[m]:.2f} GiB, idle share {idle[m]:.4f}, bn_act {want[m]} "
+        f"launches ({want[m] // cfg.effective_task_microbatches() // layers}"
+        f" forwards per microbatch; {want[m] // layers} per BN layer)"
+        for m in modes) + f" ({card})", flush=True)
+    if floors is None:
+        mcfgs, mapply = cfgs, apply
+    else:
+        c32 = cfg.replace(compute_dtype="float32")
+        _, mapply = make_model(c32)
+        mcfgs = {m: c32.replace(msl_target_batching=m) for m in modes}
+    grads = {}
+    for m in modes:
+        bn_act.reset_launches()
+        loss, _, _, _, g = make_meta_gradients(mcfgs[m], mapply)(
+            state, batch, epoch, **phase)
+        launches += bn_act.launches
+        grads[m] = (float(loss), _leaf_vectors(g))
+    dtype = mcfgs["on"].compute_dtype
+    failures += _compare_meta_gradients(
+        f"{label} msl 'on' vs 'auto' {dtype}", grads["on"], grads["auto"],
+        floors, card, what=f"one {name} meta-gradient")
+    return launches, failures
 
 
 def _bn_per_forward(cfg) -> int:
@@ -1192,22 +1366,50 @@ def _bn_per_forward(cfg) -> int:
         cfg.num_stages)
 
 
+def _forwards_per_chunk(cfg, second_order: bool, use_msl: bool) -> int:
+    """Forwards of one task microbatch of a train step (each launches
+    every BN layer once), derived from the config alone:
+
+    * support: K; 3K when a checkpoint segment is the whole inner step
+      (second order under 'nothing', 'conv_outs' or 'dots'): the inner
+      ``autograd.grad`` in the forward recomputes the support forward
+      once, the outer backward the whole step once more;
+    * targets under ``msl_target_batching='on'`` where it is exact (MSL,
+      per-step BN statistics, batch norm): ONE forward over K·T
+      instances, outside remat; else K under MSL (1 without), each
+      recomputed once in the outer backward by 'block_outs', by the
+      other policies' segments (a target forward under first order, the
+      step under second order), except the final target forward after
+      second-order step segments."""
+    k = cfg.number_of_training_steps_per_iter
+    policy = cfg.remat_policy if cfg.remat_inner_steps else None
+    step_segment = second_order and policy in ("nothing", "conv_outs",
+                                               "dots")
+    support = 3 * k if step_segment else k
+    if (use_msl and cfg.msl_target_batching == "on"
+            and cfg.per_step_bn_statistics
+            and cfg.norm_layer == "batch_norm"):
+        return support + 1
+    if use_msl:
+        return support + k * (2 if policy else 1)
+    return support + (2 if policy and not step_segment else 1)
+
+
 def _train_path_launches(cfg, epochs, iters, val_sweeps,
                          test_models) -> int:
     """BN-kernel launches a builder run makes: per train step, microbatches
-    x BN layers x (K support + targets x remat) forwards; per eval batch,
-    BN layers x (eval steps + 1); the batches of a sweep pad the
-    evaluation tasks up to a full last batch. ``iters`` is the steps of
-    each of epochs ``0 .. epochs-1``, or a ``{epoch: steps}`` dict for a
-    run that did not train every epoch alike (a rewind, a resume)."""
-    s, k = _bn_per_forward(cfg), cfg.number_of_training_steps_per_iter
-    remat = 2 if (cfg.remat_inner_steps
-                  and cfg.remat_policy == "block_outs") else 1
+    x BN layers x :func:`_forwards_per_chunk`; per eval batch, BN layers x
+    (eval steps + 1); the batches of a sweep pad the evaluation tasks up
+    to a full last batch. ``iters`` is the steps of each of epochs ``0 ..
+    epochs-1``, or a ``{epoch: steps}`` dict for a run that did not train
+    every epoch alike (a rewind, a resume)."""
+    s = _bn_per_forward(cfg)
     micro = cfg.effective_task_microbatches()
     steps = (iters if isinstance(iters, dict)
              else {e: iters for e in range(epochs)})
-    train = sum(n * micro * s * (k + (k if cfg.use_msl(e) else 1) * remat)
-                for e, n in steps.items())
+    train = sum(n * micro * s * _forwards_per_chunk(
+        cfg, cfg.use_second_order(e), cfg.use_msl(e))
+        for e, n in steps.items())
     batches = -(-cfg.num_evaluation_tasks // cfg.effective_eval_batch_size)
     per_sweep = batches * s * (cfg.number_of_evaluation_steps_per_iter + 1)
     return train + (val_sweeps + test_models) * per_sweep
@@ -1555,7 +1757,9 @@ def other_backbones(entry: dict, card: str) -> None:
     its plain version in one f32 second-order meta-gradient, beside the
     bf16-vs-f32 control; (d) serving; (e) the sinusoid JSON (MLP,
     regression) and (f) the omniglot JSON with layer norm through the
-    CLI. Adds the launches of (a), (c), (d) to ``entry``."""
+    CLI; (g) one second-order MSL step under ``msl_target_batching``
+    'auto' and 'on'. Adds the launches of (a), (c), (d), (g) to
+    ``entry``."""
     import shutil
     import tempfile
     import numpy as np
@@ -1709,6 +1913,16 @@ def other_backbones(entry: dict, card: str) -> None:
         del grads
 
         marks.append(("b", time.perf_counter()))
+
+        # (g) batched MSL targets: one second-order MSL step under 'auto'
+        # and 'on' on the run's state (launches, time, peak memory; the
+        # bf16 meta-gradients' cosine read).
+        launches, missed = _msl_batching(
+            "resnet12", cfg, apply, state, spare, 0, card, None,
+            second_order=True, sample=False)
+        entry["launches"] += launches
+        failures += missed
+        marks.append(("g", time.perf_counter()))
 
         # (d) serving the run's state.
         launches, missed = _r12_serve(cfg, state, card)
@@ -1884,10 +2098,9 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
         k = cfg.number_of_training_steps_per_iter
 
         def bn_per_step(name):
-            remat = 2 if (cfg.remat_inner_steps
-                          and cfg.remat_policy == "block_outs") else 1
             return cfg.effective_task_microbatches() * _bn_per_forward(
-                cfg) * (k + (k if name.endswith("msl1") else 1) * remat)
+                cfg) * _forwards_per_chunk(cfg, "_so1_" in name,
+                                           name.endswith("msl1"))
         perf = _check_telemetry_rows(rows, cfg.total_epochs,
                                      cfg.total_epochs
                                      * cfg.total_iter_per_epoch, bn_per_step)
@@ -2908,6 +3121,181 @@ def serving_plane(entry: dict, card: str, src: str) -> None:
         torch.cuda.empty_cache()
 
 
+# Phase 10: packed shards at mini-ImageNet's split geometry (classes x
+# images per class, 84x84x3 uint8, ~1.27 GB in all) from seeded arrays
+# (the dataset is not in the repo), and the flagship CLI trained from
+# them under batched MSL targets and the 'conv_outs' remat policy at
+# phase 5's length cuts.
+PACK_SPLITS = {"train": 64, "val": 16, "test": 20}
+PACK_IMAGES = 600
+PACK_CLI_ARGS = ["--msl_target_batching", "on", "--remat_policy",
+                 "conv_outs"]
+REPORT_SCRIPT = os.path.join(REPO, "scripts", "torch_telemetry_report.py")
+
+
+def data_path(entry: dict, card: str) -> None:
+    """Phase 10: (1) write MAMLPACK1 shards at mini-ImageNet's split
+    geometry with the port's ``write_shard`` (fewer images per class,
+    printed, if the disk lacks room); (2) verify every class CRC; (3) time
+    the open; (4) the first train batch sampled from the pack against one
+    sampled from an ``ArraySource`` over the same arrays, bitwise; (5) the
+    flagship CLI in process on the shards (``CLI_ARGS`` +
+    ``PACK_CLI_ARGS``): exit 0, the derived BN-kernel launches,
+    ``data/pack_open_seconds`` and ``data/pack_bytes_mapped`` in
+    ``metrics.prom``, ``feed_stall_frac`` reported; (6)
+    ``scripts/torch_telemetry_report.py`` over the run: its last line
+    parses and counts the run's steps. Adds (5)'s launches to ``entry``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+    from howtotrainyourmamlpytorch_tpu_torch.data import (
+        ArraySource, EpisodeSampler, MetaLearningDataLoader, source_kind)
+    from howtotrainyourmamlpytorch_tpu_torch.datastore import (
+        PackedSource, write_shard)
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
+
+    runs_dir = os.path.join(REPO, ".smoke_runs")
+    os.makedirs(runs_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="data_", dir=runs_dir)
+    marks = [("start", time.perf_counter())]
+    try:
+        cfg = MAMLConfig.from_json_file(FLAGSHIP)
+        shape = cfg.image_shape
+        per_class = int(np.prod(shape)) * PACK_IMAGES
+        need = sum(PACK_SPLITS.values()) * per_class
+        free = shutil.disk_usage(tmp).free
+        images = PACK_IMAGES
+        if free < 3 * need:   # the shard, its sidecar, headroom
+            images = max(2 * (cfg.num_samples_per_class
+                              + cfg.num_target_samples),
+                         PACK_IMAGES * free // (3 * need))
+            print(f"data: {free / 2**30:.2f} GiB free, {need / 2**30:.2f} "
+                  f"GiB needed: {images} images per class, not "
+                  f"{PACK_IMAGES}", flush=True)
+        packs = os.path.join(tmp, "packs")
+        rng = np.random.default_rng(0)
+        train = {}
+        for split, n in PACK_SPLITS.items():
+            classes = {f"{split}_{i:03d}": rng.integers(
+                0, 256, (images,) + tuple(shape), dtype=np.uint8)
+                for i in range(n)}
+            write_shard(os.path.join(packs, f"{split}.mamlpack"),
+                        classes.items(),
+                        provenance={"tool": "chip_smoke.py", "split": split})
+            if split == "train":
+                train = classes
+        sizes = {split: os.path.getsize(os.path.join(packs,
+                                                      f"{split}.mamlpack"))
+                 for split in PACK_SPLITS}
+        marks.append(("write", time.perf_counter()))
+
+        crcs = {split: len(PackedSource(os.path.join(
+            packs, f"{split}.mamlpack")).verify()) for split in PACK_SPLITS}
+        marks.append(("verify", time.perf_counter()))
+
+        t0 = time.perf_counter()
+        src = PackedSource(os.path.join(packs, "train.mamlpack"),
+                           expected_image_shape=shape)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        total_gib = sum(sizes.values()) / 2**30
+        print(f"data: shards {json.dumps(sizes)} bytes ({total_gib:.3f} "
+              f"GiB; classes {json.dumps(PACK_SPLITS)} x "
+              f"{images} images of {tuple(shape)}) written; every class CRC "
+              f"verified ({json.dumps(crcs)}); train shard opened in "
+              f"{open_ms:.3f} ms, {src.nbytes_mapped} bytes mapped ({card})",
+              flush=True)
+
+        pcfg = cfg.replace(bn_backend="pallas", dataset_pack_path=packs)
+        loader = MetaLearningDataLoader(pcfg, device="cuda")
+        if source_kind(loader.sampler("train").source) != "packed":
+            raise AssertionError("data: the loader did not read the pack")
+        batches = loader.get_train_batches(0, 1)
+        got = [t.cpu() for t in next(batches)]
+        batches.close()
+        ref = EpisodeSampler(ArraySource(train), pcfg, pcfg.train_seed,
+                             augment_classes=pcfg.augment_images)
+        eps = [ref.sample(i) for i in range(pcfg.batch_size)]
+        want = [np.stack(field) for field in zip(*eps)]
+        if not all(np.array_equal(g.numpy(), w) for g, w in zip(got, want)):
+            raise AssertionError("data: the first train batch from the pack "
+                                 "differs from the ArraySource's")
+        print(f"data: first train batch from the pack (through the loader's "
+              f"pinned copy to the card) bitwise the ArraySource's: "
+              f"{[tuple(g.shape) for g in got]} ({card})", flush=True)
+        del train, ref, eps, want, got, loader
+        marks.append(("batch", time.perf_counter()))
+
+        bn_act.reset_launches()
+        rc, builder, run_s = _cli_run(
+            PACK_CLI_ARGS + ["--dataset_pack_path", packs],
+            os.path.join(tmp, "run"))
+        launches = bn_act.launches
+        bcfg = builder.cfg
+        want_launches = _train_path_launches(
+            bcfg, bcfg.total_epochs, bcfg.total_iter_per_epoch,
+            val_sweeps=bcfg.total_epochs,
+            test_models=bcfg.max_models_to_save)
+        if rc != 0 or launches != want_launches:
+            raise AssertionError(f"data cli: exit {rc}, bn_act launched "
+                                 f"{launches} times, derived {want_launches}")
+        entry["launches"] += launches
+        kinds = {split: source_kind(builder.data.sampler(split).source)
+                 for split in PACK_SPLITS}
+        logs = builder.paths["logs"]
+        prom = _parse_prometheus(os.path.join(logs, "metrics.prom"))
+        rows = read_jsonl(os.path.join(logs, "events.jsonl"))
+        stall = [r["feed_stall_frac"] for r in rows
+                 if r["event"] == "telemetry"]
+        if (set(kinds.values()) != {"packed"}
+                or not prom.get("data_pack_open_seconds", 0) > 0
+                or prom.get("data_pack_bytes_mapped") not in {
+                    float(n * images * int(np.prod(shape)))
+                    for n in PACK_SPLITS.values()}
+                or len(stall) != bcfg.total_epochs
+                or not all(0 <= v <= 1 for v in stall)):
+            raise AssertionError(
+                f"data cli: sources {kinds}, metrics.prom "
+                f"{ {k: v for k, v in prom.items() if k.startswith('data')} }"
+                f", feed_stall_frac {stall}")
+        stats, test, _ = _verify_run("data cli", builder, 2, 2, 48)
+        print(f"data cli: exit 0 in {run_s:.1f} s from the packed shards "
+              f"({kinds}; msl_target_batching={bcfg.msl_target_batching!r}, "
+              f"remat_policy={bcfg.remat_policy!r}); epoch seconds "
+              f"{stats['epoch_seconds']}, train loss {stats['train_loss']}, "
+              f"test {test['test_accuracy_mean']}; feed_stall_frac {stall}; "
+              f"metrics.prom data/pack_open_seconds "
+              f"{prom['data_pack_open_seconds']:.6f} (three splits), "
+              f"data/pack_bytes_mapped {prom['data_pack_bytes_mapped']:.0f} "
+              f"(the split opened last); bn_act launches {launches} = "
+              f"{want_launches} ({card})", flush=True)
+        marks.append(("cli", time.perf_counter()))
+
+        out = subprocess.run([sys.executable, REPORT_SCRIPT,
+                              builder.paths["base"]], capture_output=True,
+                             text=True, timeout=120, cwd=REPO)
+        summary = json.loads(out.stdout.strip().splitlines()[-1])
+        steps = bcfg.total_epochs * bcfg.total_iter_per_epoch
+        if (out.returncode != 0 or summary.get("steps") != steps
+                or summary["data"]["source_kind"] != "packed"):
+            raise AssertionError(f"data report: exit {out.returncode}, "
+                                 f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+        print(f"data report (scripts/torch_telemetry_report.py): steps "
+              f"{summary['steps']}, epochs {summary['epochs']}, step p50 "
+              f"{summary['step_seconds_p50']} s, feed_stall_frac "
+              f"{summary['feed_stall_frac']}, data "
+              f"{json.dumps(summary['data'])} ({card})", flush=True)
+        marks.append(("report", time.perf_counter()))
+        print("phase 10 seconds per part: " + json.dumps(
+            {name: round(t - marks[i][1], 1)
+             for i, (name, t) in enumerate(marks[1:])}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def _epoch_seconds(logs: str) -> list:
     """A run's epoch seconds from its ``summary_statistics.csv``."""
     from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
@@ -2956,7 +3344,8 @@ def main() -> int:
                             e, c, results["cli"])),
                         ("faults", fault_path),
                         ("serving", lambda e, c: serving_plane(
-                            e, c, results["cli"]["saved_models"]))):
+                            e, c, results["cli"]["saved_models"])),
+                        ("data", data_path)):
         t1 = time.perf_counter()
         results[name] = phase(entry, card)
         seconds[name] = round(time.perf_counter() - t1, 1)

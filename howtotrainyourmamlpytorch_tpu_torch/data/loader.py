@@ -146,7 +146,9 @@ class MetaLearningDataLoader:
         """Host batch -> ``(Episode of tensors on the device, event)``.
         Runs in the worker: on the card the pinned copies go out on
         ``stream`` and ``event`` marks their end; on the CPU the event is
-        None."""
+        None. A packed source's episode rows are fancy-indexed copies out
+        of its mapping (``PackedSource.get_images_raw``), so what is
+        pinned is that copy, never the mapped file."""
         host = [torch.from_numpy(np.ascontiguousarray(f)) for f in batch]
         if stream is None:
             return Episode(*host), None

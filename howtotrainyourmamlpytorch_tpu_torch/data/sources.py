@@ -1,18 +1,20 @@
 """Image sources: where episode images come from (the port's copy of the
-JAX package's ``data/sources.py``).
+JAX package's ``data/sources.py``; numpy only, so it gives the JAX
+package's arrays bit for bit).
 
 Reference: ``data.py § FewShotLearningDatasetParallel.load_dataset`` builds a
 class→image-path index from ``datasets/<name>/{train,val,test}/<class>/…``
 (disjoint class splits per directory). The on-disk contract is kept
 (:class:`DiskImageSource`), beside an in-memory :class:`ArraySource`, a
 deterministic :class:`SyntheticSource` and the sinusoid regression source.
-Everything here is numpy and gives the JAX package's arrays bit for bit.
 
-Not ported yet: packed shards (``<split>.mamlpack``, the JAX package's
-``datastore/``). Where one exists :func:`build_source` raises instead of
-reading another source than the JAX package would (ROADMAP.md, Queue 1:
-packed shards). Registry counters (source kind, corrupt images) belong to
-the telemetry slice.
+Packed shards (datastore/ subsystem, docs/DATA.md): when a
+``<split>.mamlpack`` shard exists (``scripts/torch_dataset_pack.py``),
+:func:`build_source` prefers the mmap-backed
+:class:`~howtotrainyourmamlpytorch_tpu_torch.datastore.packed.PackedSource`
+over the directory walk — O(header) open, zero decode, page cache shared
+across a host's processes; a corrupt shard is quarantined (``*.corrupt``)
+and the directory source takes over.
 
 Normalization note: images are returned float32 in [0, 1]; per-dataset
 affine normalization is applied by the sampler.
@@ -21,16 +23,20 @@ affine normalization is applied by the sampler.
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from howtotrainyourmamlpytorch_tpu_torch.resilience import (counter_inc,
+                                                          get_registry)
 
 SPLITS = ("train", "val", "test")
 
-# Suffix of the JAX package's packed shards (datastore/format.py §
-# MAMLPACK1).
+# Suffix of packed shards (datastore/format.py § MAMLPACK1), duplicated
+# here so resolving "is there a pack?" never imports the datastore
+# package for runs that have none.
 PACK_SUFFIX = ".mamlpack"
 
 
@@ -75,6 +81,11 @@ class ArraySource:
         """(len(indices), H, W, C) uint8 — the wire format for the
         device-side normalization path (4x fewer host->device bytes)."""
         return self._classes[class_name][indices]
+
+    def class_images(self, class_name: str) -> np.ndarray:
+        """The class's whole ``(n, H, W, C)`` uint8 block (the pack
+        CLI's bulk-read path; episodes use ``get_images_raw``)."""
+        return self._classes[class_name]
 
 
 class DiskImageSource:
@@ -164,7 +175,8 @@ class DiskImageSource:
         fired inside the memoized decode on every re-touch, so the
         loader's fail-soft episode replacement could never succeed for
         any episode that drew this class. Instead each bad file is
-        skipped (one warning per source), the class index shrinks to the readable files (so
+        skipped with a ``data/corrupt_images`` count (one warning per
+        source), the class index shrinks to the readable files (so
         ``num_images`` tells the sampler the truth from then on), and
         only a class that loses EVERY image raises — that split really
         is broken."""
@@ -181,6 +193,7 @@ class DiskImageSource:
                     arr = np.asarray(im, np.uint8)
                 except Exception as e:  # PIL raises a zoo of types
                     last_err = e
+                    counter_inc("data/corrupt_images")
                     if not self._corrupt_warned:
                         self._corrupt_warned = True
                         warnings.warn(
@@ -212,6 +225,19 @@ class DiskImageSource:
     def get_images_raw(self, class_name: str,
                        indices: np.ndarray) -> np.ndarray:
         return self._load_class(class_name)[indices]
+
+    def class_images(self, class_name: str) -> np.ndarray:
+        """The class's whole decoded ``(n, H, W, C)`` uint8 block (the
+        pack CLI's bulk-read path)."""
+        return self._load_class(class_name)
+
+    def evict_class(self, class_name: str) -> None:
+        """Drop a memoized class block. The pack CLI streams a whole
+        split through ``class_images``; without eviction the memo would
+        pin the full decoded dataset in RAM on exactly the small login
+        boxes packing targets. Episodic training never calls this —
+        revisiting classes is the workload, the memo is the point."""
+        self._cache.pop(class_name, None)
 
 
 class SubsetSource:
@@ -246,6 +272,14 @@ class SubsetSource:
     def get_images_raw(self, class_name: str,
                        indices: np.ndarray) -> np.ndarray:
         return self._source.get_images_raw(class_name, indices)
+
+    def class_images(self, class_name: str) -> np.ndarray:
+        return self._source.class_images(class_name)
+
+    def evict_class(self, class_name: str) -> None:
+        evict = getattr(self._source, "evict_class", None)
+        if evict is not None:
+            evict(class_name)
 
 
 def split_class_names(names: Sequence[str],
@@ -369,27 +403,70 @@ def pack_shard_path(cfg, split: str) -> str:
     """Where ``build_source`` looks for ``split``'s packed shard:
     ``<cfg.dataset_pack_path>/<split>.mamlpack`` when the config points
     at a pack directory, else ``<cfg.dataset_dir>/<split>.mamlpack`` —
-    next to the split subdirectories, where ``scripts/dataset_pack.py``
+    next to the split subdirectories, where ``scripts/torch_dataset_pack.py``
     writes by default."""
     base = cfg.dataset_pack_path or cfg.dataset_dir
     return os.path.join(base, split + PACK_SUFFIX)
 
 
-def _check_no_packed_source(cfg, split: str) -> None:
-    """Raise where the JAX package would read ``split``'s packed shard:
-    the port cannot read one yet and must not read another source in its
-    place. An explicit ``dataset_pack_path`` with no shard warns, as in
-    the JAX package, and resolution goes on."""
+def _try_packed_source(cfg, split: str):
+    """Open ``split``'s packed shard if one exists; None = no (usable)
+    pack, fall through to the directory/synthetic resolution.
+
+    A corrupt/truncated shard is QUARANTINED — renamed ``*.corrupt``
+    (idempotent under multi-process races: the rename is attempted by
+    whichever process notices first, losers tolerate the miss) and
+    counted into ``resilience/quarantined``, consistent with the
+    checkpoint policy (utils/checkpoint.py § _quarantine) — so every
+    later open falls back to the directory source instead of re-parsing
+    the same damaged bytes. A shard whose geometry merely disagrees with
+    the config is left in place (it is a wrong file, not a damaged one)
+    and skipped with a warning.
+    """
     path = pack_shard_path(cfg, split)
-    if os.path.isfile(path):
-        raise NotImplementedError(
-            f"packed shard {path!r} exists; reading .mamlpack shards is not "
-            f"ported yet (ROADMAP.md, Queue 1: packed shards / datastore)")
-    if cfg.dataset_pack_path:
+    if not os.path.isfile(path):
+        if cfg.dataset_pack_path:
+            # An EXPLICIT pack path with no shard is warned about: a
+            # typo'd path silently changing the run's cold-start class
+            # is the quiet-fallback failure mode this config key's
+            # did-you-mean validation exists to prevent. The implicit
+            # next-to-the-dataset probe stays silent — most runs have
+            # no pack and that is normal.
+            warnings.warn(
+                f"dataset_pack_path is set but {path!r} does not "
+                f"exist; falling back to directory/synthetic "
+                f"resolution for split {split!r}", stacklevel=4)
+        return None
+    from howtotrainyourmamlpytorch_tpu_torch.datastore.packed import (
+        CorruptShardError, PackedSource)
+    t0 = time.perf_counter()
+    try:
+        src = PackedSource(path, expected_image_shape=cfg.image_shape)
+    except CorruptShardError as e:
+        try:
+            os.replace(path, path + ".corrupt")
+            counter_inc("resilience/quarantined")
+        except OSError:
+            pass  # a peer quarantined it first, or the dir is read-only;
+            #       the fallback below proceeds either way
         warnings.warn(
-            f"dataset_pack_path is set but {path!r} does not exist; "
-            f"falling back to directory/synthetic resolution for split "
-            f"{split!r}", stacklevel=4)
+            f"packed shard {path} is corrupt "
+            f"({type(e).__name__}: {str(e)[:160]}); quarantined to "
+            f"*.corrupt, falling back to the directory source",
+            stacklevel=3)
+        return None
+    except ValueError as e:
+        warnings.warn(
+            f"packed shard {path} skipped: {e} (not quarantined — the "
+            f"file is intact, the config disagrees with it)",
+            stacklevel=3)
+        return None
+    reg = get_registry()
+    if reg is not None:
+        reg.counter("data/pack_open_seconds").inc(
+            time.perf_counter() - t0)
+        reg.gauge("data/pack_bytes_mapped").set(src.nbytes_mapped)
+    return src
 
 
 def build_source(cfg, split: str):
@@ -398,8 +475,9 @@ def build_source(cfg, split: str):
     Resolution order:
 
     1. A packed shard (``<split>.mamlpack`` under ``dataset_pack_path``
-       or next to the split dirs — :func:`pack_shard_path`) is where the
-       JAX package would read; the port raises ``NotImplementedError``.
+       or next to the split dirs — :func:`pack_shard_path`): O(header)
+       mmap open, zero decode, page cache shared across processes
+       (docs/DATA.md). Corrupt shards are quarantined and fall through.
     2. ``sets_are_pre_split=True`` (default): disk layout
        ``<cfg.dataset_dir>/<split>/<class>/…`` when present — where
        ``dataset_dir`` is ``dataset_path/dataset_name`` (the reference's
@@ -412,10 +490,16 @@ def build_source(cfg, split: str):
     3. A synthetic fallback (with a warning unless the dataset name says
        'synthetic') so the framework runs end-to-end with no datasets
        installed.
+
+    Every resolution counts ``data/source_kind/<kind>`` into the
+    process registry (when one is installed) so the telemetry report can
+    answer "what actually fed this run?" after the fact.
     """
     if split not in SPLITS:
         raise ValueError(f"unknown split {split!r}")
-    return _resolve_source(cfg, split)
+    src = _resolve_source(cfg, split)
+    counter_inc(f"data/source_kind/{source_kind(src)}")
+    return src
 
 
 def _resolve_source(cfg, split: str):
@@ -431,7 +515,9 @@ def _resolve_source(cfg, split: str):
                 2 * (cfg.num_samples_per_class + cfg.num_target_samples),
                 50),
             seed=(_SPLIT_SEEDS[split], cfg.seed))
-    _check_no_packed_source(cfg, split)
+    packed = _try_packed_source(cfg, split)
+    if packed is not None:
+        return packed
     disk_kwargs = dict(
         preload=cfg.load_into_memory,
         numeric_sort=cfg.labels_as_int,

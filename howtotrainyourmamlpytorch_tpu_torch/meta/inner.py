@@ -37,7 +37,29 @@ reentry, and only where an outer backward will run:
   forward, inner gradient, update, MSL target forward) is one segment,
   as ``jax.checkpoint(policy=nothing_saveable)``; under first order each
   target forward is one segment.
-* ``'conv_outs'`` / ``'dots'`` raise ``NotImplementedError``.
+* ``'conv_outs'`` and ``'dots'``: the segments of ``'nothing'``, run
+  under a selective policy (:class:`SavePolicy`, through
+  ``checkpoint(context_fn=...)``) that keeps some op outputs from the
+  forward and recomputes the rest.
+  ``'conv_outs'`` keeps the outputs computed inside
+  ``models/layers.py § conv_out_tag`` (the JAX package's ``conv_out``
+  name: every conv, the 1x1 skip's matmul included); ``'dots'`` keeps
+  every convolution and matrix product the segment runs, those of the
+  inner gradient included (``jax.checkpoint_policies.dots_saveable``
+  saves ``dot_general`` and ``conv_general_dilated``). The BN kernel is
+  launched through ctypes between an ``aten.empty`` and its outputs, so
+  no policy sees or keeps it: its ``autograd.Function`` forward, a
+  fresh launch, reruns in every recompute.
+
+MSL target batching (``msl_target_batching='on'``, JAX
+``meta/inner.py:246-340``): where it is exact (MSL on, per-step BN
+statistics, batch norm) the support loop only collects each step's
+post-update fast weights, then ONE target forward runs over the K·T
+instances (s, t), each at BN row s of task t, on the post-loop norm
+state; row s of instance (s, t) is folded back into task t's state. That
+forward sits outside remat, as in the JAX package, where
+``jax.checkpoint`` wraps only the scan body. Elsewhere 'on', and always
+'auto' and 'off', run the serial path.
 
 The support forward, inner gradient, LSLR update and target forwards run
 under the JAX package's ``named_scope`` labels as ``record_function``
@@ -47,13 +69,18 @@ profiler records.
 
 from __future__ import annotations
 
+import functools
+from collections import defaultdict
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map as map_outputs
 from torch.utils.checkpoint import checkpoint
 
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.meta.algos import HEAD_PARAM_KEYS
+from howtotrainyourmamlpytorch_tpu_torch.models.layers import in_conv_out_tag
 from howtotrainyourmamlpytorch_tpu_torch.ops.losses import task_loss_fns
 from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import region
 from howtotrainyourmamlpytorch_tpu_torch.tree import (stack_tasks,
@@ -145,21 +172,126 @@ def per_step_loss_importance(cfg: MAMLConfig, epoch,
     return torch.where(idx == k - 1, final, nonfinal)
 
 
+REMAT_POLICIES = ("block_outs", "conv_outs", "dots", "nothing")
+# Policies that run the segments of 'nothing' (the others save more).
+SEGMENT_POLICIES = ("conv_outs", "dots", "nothing")
+
+_aten = torch.ops.aten
+# What 'conv_outs' keeps inside the conv tag: the conv, or the matmul of
+# the 1x1 conv's einsum.
+CONV_OUT_OPS = frozenset({_aten.convolution.default, _aten.bmm.default,
+                          _aten.mm.default})
+# What 'dots' keeps anywhere in a segment: every convolution and matrix
+# product, forward and inner gradient.
+DOT_OPS = frozenset({_aten.convolution.default,
+                     _aten.convolution_backward.default, _aten.mm.default,
+                     _aten.bmm.default, _aten.baddbmm.default,
+                     _aten.addmm.default})
+
+
 def remat_policy(cfg: MAMLConfig) -> Optional[str]:
     """The remat policy the port runs (module docstring), or None when
     ``remat_inner_steps`` is off."""
     if not cfg.remat_inner_steps:
         return None
-    policy = cfg.remat_policy
-    if policy in ("conv_outs", "dots"):
-        raise NotImplementedError(
-            f"remat_policy={policy!r} needs selective checkpointing, not "
-            f"ported yet (ROADMAP.md, Queue 1: remat policies "
-            f"'conv_outs'/'dots'); use 'block_outs' or 'nothing'")
-    if policy not in ("block_outs", "nothing"):
-        raise ValueError(f"unknown remat_policy {policy!r}; one of "
-                         f"['block_outs', 'conv_outs', 'dots', 'nothing']")
-    return policy
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one "
+                         f"of {list(REMAT_POLICIES)}")
+    return cfg.remat_policy
+
+
+class SavePolicy:
+    """Which op outputs a ``'conv_outs'`` or ``'dots'`` segment keeps.
+    ``saved`` counts the outputs kept in forwards."""
+
+    def __init__(self, name: str):
+        if name not in ("conv_outs", "dots"):
+            raise ValueError(f"no selective policy for {name!r}")
+        self.name = name
+        self.saved = 0
+
+    def keeps(self, op) -> bool:
+        if self.name == "dots":
+            return op in DOT_OPS
+        return op in CONV_OUT_OPS and in_conv_out_tag()
+
+
+def _shapes(args) -> Tuple:
+    return tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+
+
+def _detached(out):
+    return map_outputs(
+        lambda t: t.detach() if isinstance(t, torch.Tensor) else t, out)
+
+
+class _Keep(TorchDispatchMode):
+    """A segment's forward: runs every op, keeps what the policy keeps."""
+
+    def __init__(self, policy: SavePolicy, store):
+        super().__init__()
+        self.policy, self.store = policy, store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.policy.keeps(func):
+            self.store[func].append((_shapes(args), _detached(out)))
+            self.policy.saved += 1
+        return out
+
+
+class _Replay(TorchDispatchMode):
+    """A segment's recompute: serves each kept op its forward output, in
+    order, and runs the rest. Unlike torch's selective checkpoint it
+    serves them to every recompute: under second order the inner
+    ``autograd.grad`` in the forward recomputes the support forward once
+    before the outer backward recomputes the whole step."""
+
+    def __init__(self, policy: SavePolicy, store):
+        super().__init__()
+        self.policy, self.store = policy, store
+        self.served = defaultdict(int)
+
+    def __enter__(self):
+        self.served.clear()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.policy.keeps(func):
+            return func(*args, **(kwargs or {}))
+        i = self.served[func]
+        self.served[func] += 1
+        kept = self.store[func]
+        if i >= len(kept) or kept[i][0] != _shapes(args):
+            raise RuntimeError(
+                f"remat {self.policy.name!r}: the recompute's call {i} of "
+                f"{func} does not match the forward's")
+        return _detached(kept[i][1])
+
+
+def segment_checkpoint(policy: str):
+    """``checkpoint`` for one segment under ``policy`` (one of
+    :data:`SEGMENT_POLICIES`), with its selective policy where it has
+    one."""
+    kwargs = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy != "nothing":
+        save = SavePolicy(policy)
+
+        def contexts():
+            store = defaultdict(list)
+            return _Keep(save, store), _Replay(save, store)
+        kwargs["context_fn"] = contexts
+    return functools.partial(checkpoint, **kwargs)
+
+
+def msl_batched(cfg: MAMLConfig, use_msl: bool) -> bool:
+    """Whether :func:`task_forward` batches the MSL target forwards: only
+    under ``'on'``, and only where it is exact (JAX ``meta/inner.py:
+    260-270``): a shared BN row is blended serially by every forward,
+    and layer norm has no per-step rows."""
+    return (cfg.msl_target_batching == "on" and use_msl
+            and cfg.per_step_bn_statistics
+            and cfg.norm_layer == "batch_norm")
 
 
 def _lslr_update(fast: Params, grads: Params, lslr: Params,
@@ -225,16 +357,12 @@ def task_forward(cfg: MAMLConfig, apply_fn, params: Params, lslr: Params,
 
     ``params``/``lslr``/``bn_state`` are shared (no task axis); the
     episode's tensors carry the task axis and are already normalized.
-    MSL runs the serial path of the JAX package's default
-    ``msl_target_batching='auto'``: after each support step, a target
-    forward at that step's BN row, the losses weighted by
-    ``msl_weights``. Without MSL one target forward after the last step.
-    ``plain`` selects the BN kernel's plain version."""
-    if cfg.msl_target_batching == "on":
-        raise NotImplementedError(
-            "msl_target_batching='on' (batched MSL target forwards) is not "
-            "ported yet (ROADMAP.md, Queue 1: batched MSL targets); the "
-            "default 'auto' runs the serial path")
+    MSL runs, by default (``msl_target_batching='auto'``), the serial
+    path: after each support step, a target forward at that step's BN
+    row, the losses weighted by ``msl_weights``; where
+    :func:`msl_batched` holds, one batched target forward after the
+    loop (module docstring). Without MSL one target forward after the
+    last step. ``plain`` selects the BN kernel's plain version."""
     num_tasks = episode.support_x.shape[0]
     fast0, slow0 = split_fast_slow(cfg, params)
     fast = stack_tasks(fast0, num_tasks)
@@ -243,15 +371,17 @@ def task_forward(cfg: MAMLConfig, apply_fn, params: Params, lslr: Params,
     loss_fn, _, metric_fn = task_loss_fns(cfg)
     policy = (remat_policy(cfg) if _needs_outer_graph(params, lslr)
               else None)
-    step_segment = policy == "nothing" and second_order
+    segmented = policy in SEGMENT_POLICIES
+    step_segment = segmented and second_order
+    segment = segment_checkpoint(policy) if segmented else None
+    batched = msl_batched(cfg, use_msl)
 
     def target_forward(fast, bn, step):
         run = merge_fast_slow(fast, slow)
-        if policy == "nothing" and not step_segment:
-            return checkpoint(
+        if segmented and not step_segment:
+            return segment(
                 lambda r, b: apply_fn(r, b, episode.target_x, step, True,
-                                      plain=plain),
-                run, bn, use_reentrant=False, preserve_rng_state=False)
+                                      plain=plain), run, bn)
         return apply_fn(run, bn, episode.target_x, step, True, plain=plain,
                         remat=policy == "block_outs")
 
@@ -259,25 +389,31 @@ def task_forward(cfg: MAMLConfig, apply_fn, params: Params, lslr: Params,
         fast, bn, s_loss = support_adapt_step(
             cfg, apply_fn, slow, lslr, episode.support_x, episode.support_y,
             fast, bn, step, second_order=second_order, plain=plain)
-        if not use_msl:
+        if batched or not use_msl:
             return fast, bn, s_loss, None, None
         with region("inner_msl_target_forward"):
             t_logits, bn = target_forward(fast, bn, step)
             t_loss = loss_fn(t_logits, episode.target_y)
         return fast, bn, s_loss, t_loss, t_logits
 
-    s_losses, t_losses = [], []
+    s_losses, t_losses, fast_steps = [], [], []
     for step in range(num_steps):
         if step_segment:
-            out = checkpoint(inner_step, fast, bn, step, use_reentrant=False,
-                             preserve_rng_state=False)
+            out = segment(inner_step, fast, bn, step)
         else:
             out = inner_step(fast, bn, step)
         fast, bn, s_loss, t_loss, t_logits = out
         s_losses.append(s_loss)
         t_losses.append(t_loss)
+        if batched:
+            fast_steps.append(fast)
 
-    if use_msl:
+    if batched:
+        with region("inner_msl_target_forward"):
+            per_step_t, final_logits, bn = _batched_targets(
+                apply_fn, slow0, fast_steps, bn, episode, loss_fn, plain)
+        loss = (msl_weights[:num_steps] * per_step_t).sum(1)
+    elif use_msl:
         per_step_t = torch.stack(t_losses, dim=1)          # (T, K)
         loss = (msl_weights[:num_steps] * per_step_t).sum(1)
         final_logits = t_logits
@@ -294,6 +430,35 @@ def task_forward(cfg: MAMLConfig, apply_fn, params: Params, lslr: Params,
         support_loss=per_step_s.mean(1), bn_state=bn,
         per_step_target_losses=per_step_t.detach(),
         per_step_support_losses=per_step_s)
+
+
+def _batched_targets(apply_fn, slow0: Params, fast_steps, bn: State,
+                     episode: Episode, loss_fn, plain: bool):
+    """The K MSL target forwards of a batch of T tasks as ONE forward over
+    K·T instances, instance (s, t) = index s·T + t: step s's fast weights
+    of task t, the slow weights, task t's targets and the post-loop norm
+    state at BN row s. Returns the per-step target losses ``(T, K)``,
+    step K−1's logits and the norm state with row s of instance (s, t)
+    folded back into task t's (JAX ``merge_rows``)."""
+    k, t = len(fast_steps), episode.target_x.shape[0]
+    fast = tree_map(lambda *xs: torch.cat(xs), *fast_steps)
+    run = merge_fast_slow(fast, stack_tasks(slow0, k * t))
+    bn_k = tree_map(lambda v: torch.cat([v] * k), bn)
+    steps = torch.arange(k, device=episode.target_x.device)
+    logits, bn_k = apply_fn(run, bn_k, torch.cat([episode.target_x] * k),
+                            steps.repeat_interleave(t), True, plain=plain)
+    per_step = loss_fn(logits, torch.cat([episode.target_y] * k)).view(
+        k, t).t()
+
+    def merge_rows(carried, stepped):
+        rows = steps.clamp(0, carried.shape[1] - 1)
+        out = carried.clone()
+        out[:, rows] = stepped.view(k, t, *carried.shape[1:])[
+            steps, :, rows].transpose(0, 1)
+        return out
+
+    return (per_step, logits.view(k, t, *logits.shape[1:])[k - 1],
+            tree_map(merge_rows, bn, bn_k))
 
 
 def reptile_task_forward(cfg: MAMLConfig, apply_fn, params: Params,

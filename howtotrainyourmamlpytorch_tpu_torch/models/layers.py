@@ -21,12 +21,22 @@ Weights are stored in torch's layout (OIHW convs, ``(out, in)``
 linears); ``convert.state_from_jax`` maps the JAX package's HWIO /
 ``(in, out)`` leaves onto them. Convolutions and matrix products go to
 cuDNN/cuBLAS, as the JAX package leaves them to XLA.
+
+The per-step BN rows take a ``step`` that is either an ``int`` (every
+task at that row) or a ``(T,)`` integer tensor of per-task rows: the
+batched MSL target forward (meta/inner.py) runs one forward over K·T
+stacked instances, instance (s, t) at row s. :func:`conv_out_tag` marks
+the ops that compute a conv output, the counterpart of the JAX
+package's ``checkpoint_name(y, "conv_out")`` that the ``'conv_outs'``
+remat policy saves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Tuple
+import threading
+from typing import Any, Dict, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +45,28 @@ from howtotrainyourmamlpytorch_tpu_torch.ops.bn_act import bn_act
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
+# A BN row: one int for every task, or a (T,) integer tensor per task.
+Step = Union[int, torch.Tensor]
+
+_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def conv_out_tag():
+    """Marks the ops that compute a conv output on this thread (read by
+    :func:`in_conv_out_tag`; the ``'conv_outs'`` remat policy saves their
+    results). Per thread: a recompute in the autograd engine's device
+    thread enters it there too."""
+    prev = getattr(_TAG, "on", False)
+    _TAG.on = True
+    try:
+        yield
+    finally:
+        _TAG.on = prev
+
+
+def in_conv_out_tag() -> bool:
+    return getattr(_TAG, "on", False)
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +164,8 @@ def conv2d_apply(params: Params, x: torch.Tensor, *, stride: int = 1,
         # A 1x1/stride-1 conv is a per-pixel matmul per task.
         n, _, h, wd = x.shape
         xs = x.permute(0, 2, 3, 1).reshape(n, h, wd, t, i)
-        y = torch.einsum("nhwti,toi->nhwto", xs, w[:, :, :, 0, 0])
+        with conv_out_tag():
+            y = torch.einsum("nhwti,toi->nhwto", xs, w[:, :, :, 0, 0])
         y = y.reshape(n, h, wd, t * o) + b
         return y.permute(0, 3, 1, 2)
     if padding == "SAME":
@@ -145,8 +178,9 @@ def conv2d_apply(params: Params, x: torch.Tensor, *, stride: int = 1,
         pad = (0, 0)
     else:
         pad = (pt, pl)
-    return F.conv2d(_channels_last(x), w.reshape(t * o, i, kh, kw), b,
-                    stride=stride, padding=pad, groups=t)
+    x, w = _channels_last(x), w.reshape(t * o, i, kh, kw)
+    with conv_out_tag():
+        return F.conv2d(x, w, b, stride=stride, padding=pad, groups=t)
 
 
 def linear_apply(params: Params, x: torch.Tensor, *,
@@ -163,28 +197,43 @@ def linear_apply(params: Params, x: torch.Tensor, *,
 # per-step batch norm (BNRS + BNWB)
 # ---------------------------------------------------------------------------
 
-def _step_row(params: Params, step: int) -> Tuple[int, torch.Tensor,
-                                                  torch.Tensor]:
-    """Clip ``step`` to the stored rows; γ/β of that row as ``(T·C,)``."""
+def _rows(idx: Step):
+    """Index of row ``idx`` of every task in a ``(T, steps, C)`` leaf."""
+    if isinstance(idx, torch.Tensor):
+        return torch.arange(idx.shape[0], device=idx.device), idx
+    return slice(None), idx
+
+
+def _step_row(params: Params, step: Step) -> Tuple[Step, torch.Tensor,
+                                                   torch.Tensor]:
+    """Clip ``step`` (an int, or a ``(T,)`` tensor of per-task rows) to
+    the stored rows; γ/β of each task's row as ``(T·C,)``. The per-task
+    gather is differentiable: outer gradients reach every row used."""
     num_steps = params["gamma"].shape[1]
-    idx = min(max(int(step), 0), num_steps - 1)
-    return (idx, params["gamma"][:, idx].reshape(-1),
-            params["beta"][:, idx].reshape(-1))
+    if isinstance(step, torch.Tensor):
+        idx = step.clamp(0, num_steps - 1)
+    else:
+        idx = min(max(int(step), 0), num_steps - 1)
+    at = _rows(idx)
+    return (idx, params["gamma"][at].reshape(-1),
+            params["beta"][at].reshape(-1))
 
 
-def _running_update(state: State, idx: int, mean: torch.Tensor,
+def _running_update(state: State, idx: Step, mean: torch.Tensor,
                     var: torch.Tensor, count: int,
                     momentum: float) -> State:
-    """torch's momentum convention at row ``idx``: ``r ← (1−m)·r + m·batch``
-    with the unbiased batch variance. Running stats are tracked, never
-    used to normalize, and never differentiated."""
+    """torch's momentum convention at each task's row ``idx``:
+    ``r ← (1−m)·r + m·batch`` with the unbiased batch variance. Running
+    stats are tracked, never used to normalize, and never
+    differentiated."""
     t, _, c = state["mean"].shape
     mean = mean.detach().reshape(t, c)
     unbiased = var.detach().reshape(t, c) * (count / max(count - 1, 1))
+    at = _rows(idx)
     new_state = {}
     for key, batch in (("mean", mean), ("var", unbiased)):
         rows = state[key].clone()
-        rows[:, idx] = (1.0 - momentum) * state[key][:, idx] + momentum * batch
+        rows[at] = (1.0 - momentum) * state[key][at] + momentum * batch
         new_state[key] = rows
     return new_state
 
@@ -201,7 +250,7 @@ def _from_matrix(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def batch_norm_apply(params: Params, state: State, x: torch.Tensor,
-                     step: int, *, training: bool, momentum: float = 0.1,
+                     step: Step, *, training: bool, momentum: float = 0.1,
                      eps: float = 1e-5,
                      fast_math: bool = False) -> Tuple[torch.Tensor, State]:
     """Batch-statistics BN of ``(N, T·C, H, W)`` with per-(task, channel)
@@ -230,7 +279,7 @@ def batch_norm_apply(params: Params, state: State, x: torch.Tensor,
 
 
 def fused_batch_norm_relu_apply(
-        params: Params, state: State, x: torch.Tensor, step: int, *,
+        params: Params, state: State, x: torch.Tensor, step: Step, *,
         training: bool, momentum: float = 0.1, eps: float = 1e-5,
         negative_slope: float = 0.0,
         plain: bool = False) -> Tuple[torch.Tensor, State]:
@@ -248,7 +297,7 @@ def fused_batch_norm_relu_apply(
 
 
 def batch_norm_act_apply(cfg, params: Params, state: State, x: torch.Tensor,
-                         step: int, *, training: bool,
+                         step: Step, *, training: bool,
                          negative_slope: float = 0.0, plain: bool = False
                          ) -> Tuple[torch.Tensor, State]:
     """BN + activation with backend dispatch (config ``bn_backend``):
@@ -283,7 +332,7 @@ def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def layer_norm_apply(params: Params, state: State, x: torch.Tensor,
-                     step: int, *, training: bool,
+                     step: Step, *, training: bool,
                      eps: float = 1e-5) -> Tuple[torch.Tensor, State]:
     """Per-sample normalization of ``(N, T·C, H, W)``: statistics per
     (example, task) over that task's ``(H, W, C)`` features in f32, then

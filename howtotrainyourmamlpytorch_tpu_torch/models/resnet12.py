@@ -19,7 +19,8 @@ launches the BN kernel 16 times. Parameter names are flat
                                                      -> (logits, new_state)
 
 Same contract as ``models/vgg.py`` (task axis written out, NHWC input
-``(T, N, H, W, C)``, f32 logits ``(T, N, out)``). ``remat=True`` runs each
+``(T, N, H, W, C)``, f32 logits ``(T, N, out)``, ``step`` an int or
+per-task rows, which all four BN layers of a block take). ``remat=True`` runs each
 residual block as one ``torch.utils.checkpoint`` segment (the JAX
 package's ``block_out`` tag): the block's input stays saved, the rest is
 recomputed in the backward.
@@ -57,7 +58,7 @@ def _norm_slope(j: int) -> float:
 
 
 def _apply_block(cfg: MAMLConfig, params: Params, state: State,
-                 x: torch.Tensor, block: int, step: int, training: bool,
+                 x: torch.Tensor, block: int, step: layers.Step, training: bool,
                  plain: bool) -> Tuple[torch.Tensor, State]:
     """One residual block on ``(N, T·C, H, W)``; returns the pooled output
     and the block's four norm states."""
@@ -111,7 +112,7 @@ def make_resnet12(cfg: MAMLConfig):
                                               cfg.num_output_units)
         return params, state
 
-    def apply(params: Params, state: State, x: torch.Tensor, step: int,
+    def apply(params: Params, state: State, x: torch.Tensor, step: layers.Step,
               training: bool, plain: bool = False, remat: bool = False
               ) -> Tuple[torch.Tensor, State]:
         num_tasks = x.shape[0]

@@ -14,7 +14,9 @@ a per-sample layer norm with an elementwise affine over the conv output's
 ``init`` returns one task's tensors (no task axis), on the CPU.
 ``apply`` takes a task-batched forward: every params/state leaf has a
 leading task axis ``T`` (tree.stack_tasks), ``x`` is ``(T, N, H, W, C)``
-NHWC, logits are ``(T, N, out)`` f32. ``plain=True`` runs the BN
+NHWC, logits are ``(T, N, out)`` f32. ``step`` picks the per-step BN
+row: an int for every task, or a ``(T,)`` tensor of per-task rows (the
+batched MSL target forward). ``plain=True`` runs the BN
 kernel's plain PyTorch version (bn_backend='pallas' only). ``remat=True``
 runs each stage (conv → BN → ReLU → pool) as one
 ``torch.utils.checkpoint`` segment: its input stays saved, the rest is
@@ -67,7 +69,7 @@ def _stage_shapes(cfg: MAMLConfig) -> List[Tuple[int, int]]:
 
 
 def _features_apply(cfg: MAMLConfig, params: Params, state: State,
-                    x: torch.Tensor, step: int, training: bool,
+                    x: torch.Tensor, step: layers.Step, training: bool,
                     plain: bool, remat: bool) -> Tuple[torch.Tensor, State]:
     """Conv tower: ``(T, N, H, W, C)`` -> ``(T, N, features)`` and the
     new norm state."""
@@ -128,7 +130,7 @@ def make_vgg(cfg: MAMLConfig) -> Tuple[InitFn, ApplyFn]:
             gen, fh * fw * cfg.cnn_num_filters, cfg.num_output_units)
         return params, state
 
-    def apply(params: Params, state: State, x: torch.Tensor, step: int,
+    def apply(params: Params, state: State, x: torch.Tensor, step: layers.Step,
               training: bool, plain: bool = False, remat: bool = False
               ) -> Tuple[torch.Tensor, State]:
         feats, new_state = _features_apply(cfg, params, state, x, step,

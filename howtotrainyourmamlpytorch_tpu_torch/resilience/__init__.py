@@ -47,6 +47,11 @@ def set_registry(registry: Optional[Any]) -> Optional[Any]:
     return prev
 
 
+def get_registry() -> Optional[Any]:
+    """The installed registry, or None."""
+    return _registry
+
+
 def counter_inc(name: str, amount: float = 1.0) -> None:
     """Increment ``name`` on the installed registry; no-op without one."""
     reg = _registry
@@ -67,5 +72,6 @@ from howtotrainyourmamlpytorch_tpu_torch.resilience.watchdog import (  # noqa: E
 
 __all__ = ["EXIT_HUNG", "EXIT_PREEMPTED", "DivergenceGuard", "FaultPlan",
            "FaultSpec", "FlightRecorder", "ProgressBeacon", "Watchdog",
-           "backoff_delay", "counter_inc", "retry_io", "set_registry",
+           "backoff_delay", "counter_inc", "get_registry", "retry_io",
+           "set_registry",
            "write_crash_bundle"]

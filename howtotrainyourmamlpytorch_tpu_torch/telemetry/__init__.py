@@ -1,12 +1,12 @@
 """Telemetry: metrics registry, instrumentation, aggregation, alerts,
-timeline, training health and the perf sampler (the port's counterpart
-of the JAX package's ``telemetry/``).
+timeline, training health, the perf sampler and the run report (the
+port's counterpart of the JAX package's ``telemetry/``).
 
 A port run writes the JAX package's rows and files (``events.jsonl``,
-``metrics.prom``, ``trace.json``, ``PROFILE.json``), so the JAX package's
-``scripts/telemetry_report.py`` reads it unchanged. Not here: the
-``CompileWatcher`` (eager PyTorch compiles nothing) and the report
-itself, which stays the JAX package's.
+``metrics.prom``, ``trace.json``, ``PROFILE.json``), so either package's
+report (``telemetry/report.py``; ``scripts/torch_telemetry_report.py``,
+``scripts/telemetry_report.py``) reads it. Not here: the
+``CompileWatcher`` (eager PyTorch compiles nothing).
 """
 
 from howtotrainyourmamlpytorch_tpu_torch.telemetry.aggregate import (

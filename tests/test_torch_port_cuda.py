@@ -8,6 +8,8 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -305,7 +307,8 @@ def test_train_step_on_the_card_kernel_matches_plain(cuda_device):
     assert float(a @ b / (a.norm() * b.norm())) >= 0.99
 
 
-@pytest.mark.parametrize("policy", ["block_outs", "nothing"])
+@pytest.mark.parametrize("policy", ["block_outs", "nothing", "conv_outs",
+                                    "dots"])
 def test_remat_on_the_card_matches_no_remat(cuda_device, policy):
     """Checkpoint recomputes launch the kernel again on the same inputs
     (it is bitwise deterministic), so remat changes no meta-gradient
@@ -340,6 +343,89 @@ def test_remat_on_the_card_matches_no_remat(cuda_device, policy):
                 if float(b.norm()) > 0:
                     assert float(a @ b / (a.norm() * b.norm())) >= 0.999, (
                         top, layer, leaf)
+
+
+def test_batched_msl_on_the_card_matches_serial(cuda_device):
+    """``msl_target_batching='on'`` on the card: a first-order MSL step
+    launches the kernel K + 1 times per BN layer and microbatch (K
+    support forwards, ONE target forward over K·T instances) against
+    3K under 'auto' with 'block_outs'; the meta-gradient equals the
+    serial one (loss 1e-5, leaf cosine 0.999, conv biases excepted)."""
+    base = MAMLConfig(dataset_name="synthetic", image_height=12,
+                      image_width=12, image_channels=3,
+                      num_classes_per_set=3, num_samples_per_class=2,
+                      num_target_samples=2, cnn_num_filters=8, num_stages=2,
+                      number_of_training_steps_per_iter=3, batch_size=4,
+                      task_microbatches=2, bn_backend="pallas",
+                      bn_fast_math=True, compute_dtype="float32")
+    init, apply = make_model(base)
+    state = init_train_state(base, init, seed=2, device=cuda_device)
+    batch = next(MetaLearningDataLoader(base, device=cuda_device)
+                 .get_train_batches(0, 1))
+    grads = {}
+    for mode, per_micro in (("on", 3 + 1), ("auto", 3 + 3 * 2)):
+        cfg = base.replace(msl_target_batching=mode)
+        bn_act.reset_launches()
+        loss, *_, g = make_meta_gradients(cfg, apply)(
+            state, batch, 0, second_order=False, use_msl=True)
+        torch.cuda.synchronize()
+        assert bn_act.launches == 2 * 2 * per_micro, mode
+        grads[mode] = (loss, g)
+    (lb, gb), (ls, gs) = grads["on"], grads["auto"]
+    torch.testing.assert_close(lb, ls, rtol=1e-5, atol=0)
+    for top in ("params", "lslr"):
+        for layer, sub in gs[top].items():
+            for leaf, t in sub.items():
+                if layer.startswith("conv") and leaf == "b":
+                    continue
+                a, b = gb[top][layer][leaf].double().flatten(), t.double(
+                    ).flatten()
+                if float(b.norm()) > 0:
+                    assert float(a @ b / (a.norm() * b.norm())) >= 0.999
+
+
+def test_pack_cli_run_on_the_card(cuda_device, tmp_path):
+    """A tiny CLI run on the card trained from MAMLPACK1 shards under
+    'on' + 'conv_outs': it reads the packed source, exits 0 and launches
+    the kernel as derived (per train step: microbatches x stages x
+    (K + 1) in the first-order MSL epoch, x (3K + 1) in the second-order
+    one)."""
+    from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
+    from howtotrainyourmamlpytorch_tpu_torch.data import source_kind
+    from howtotrainyourmamlpytorch_tpu_torch.datastore import write_shard
+    rng = np.random.default_rng(0)
+    packs = tmp_path / "packs"
+    for split, n in (("train", 8), ("val", 4), ("test", 4)):
+        write_shard(str(packs / f"{split}.mamlpack"),
+                    [(f"c{i}", rng.integers(0, 256, (6, 12, 12, 3),
+                                            dtype=np.uint8))
+                     for i in range(n)])
+    cfg = dict(experiment_name="pack", dataset_name="packed",
+               image_height=12, image_width=12, image_channels=3,
+               num_classes_per_set=3, num_samples_per_class=2,
+               num_target_samples=2, cnn_num_filters=8, num_stages=2,
+               number_of_training_steps_per_iter=2,
+               number_of_evaluation_steps_per_iter=2, batch_size=4,
+               task_microbatches=2, bn_backend="pallas", bn_fast_math=True,
+               total_epochs=2, total_iter_per_epoch=2,
+               first_order_to_second_order_epoch=0,
+               multi_step_loss_num_epochs=1, num_evaluation_tasks=4,
+               max_models_to_save=1, msl_target_batching="on",
+               remat_policy="conv_outs", dataset_pack_path=str(packs))
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    builders = []
+    bn_act.reset_launches()
+    assert train_maml_system.main(
+        ["--name_of_args_json_file", str(path), "--experiment_root",
+         str(tmp_path / "runs")], builders=builders) == 0
+    torch.cuda.synchronize()
+    b = builders[0]
+    assert source_kind(b.data.sampler("train").source) == "packed"
+    s, k, micro = 2, 2, 2
+    train = 2 * micro * s * (k + 1) + 2 * micro * s * (3 * k + 1)
+    per_eval = -(-4 // b.cfg.effective_eval_batch_size) * s * (k + 1)
+    assert bn_act.launches == train + (2 + 1) * per_eval
 
 
 def _paths(tree, prefix=()):

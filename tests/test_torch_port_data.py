@@ -133,6 +133,11 @@ def test_disk_source_episodes_equal_jax(tmp_path, pre_split):
 
 
 def test_synthetic_fallback_equals_jax_and_packed_shard_raises(tmp_path):
+    """The synthetic fallback equals the JAX package's; a truncated
+    ``b"MAMLPACK1"`` file where a shard belongs is handled as in JAX:
+    quarantined to ``*.corrupt`` with a warning, and resolution falls
+    back. (The name predates the port's shard reader, when such a file
+    raised.)"""
     jcfg, cfg = _configs(dataset_name="mini_imagenet_full_size",
                          dataset_path=str(tmp_path / "absent"))
     with pytest.warns(UserWarning, match="synthetic"):
@@ -145,10 +150,16 @@ def test_synthetic_fallback_equals_jax_and_packed_shard_raises(tmp_path):
         assert np.array_equal(_whole_class(src, name),
                               jsrc.class_images(name))
     (tmp_path / "pack").mkdir()
-    (tmp_path / "pack" / "val.mamlpack").write_bytes(b"MAMLPACK1")
+    shard = tmp_path / "pack" / "val.mamlpack"
+    shard.write_bytes(b"MAMLPACK1")
     packed = cfg.replace(dataset_pack_path=str(tmp_path / "pack"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_source(packed, "val")
+    with pytest.warns(UserWarning, match="quarantined"):
+        src = build_source(packed, "val")
+    assert not shard.exists()
+    assert (tmp_path / "pack" / "val.mamlpack.corrupt").read_bytes() == (
+        b"MAMLPACK1")
+    assert isinstance(src, SyntheticSource)
+    assert src.class_names == jsrc.class_names
 
 
 def test_array_source_validates_like_jax():

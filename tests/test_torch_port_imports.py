@@ -1,10 +1,9 @@
 """The PyTorch/CUDA port stands alone: import isolation and config parity.
 
 * Every module of ``howtotrainyourmamlpytorch_tpu_torch``, and the port's
-  chaos harness ``scripts/torch_chaos_run.py``, imports in a process
-  where ``jax`` cannot be imported.
-* No module of the port, nor ``chip_smoke.py``,
-  ``scripts/torch_chaos_run.py`` or ``scripts/torch_fleet_bench.py``,
+  scripts (``scripts/torch_*.py``), import in a process where ``jax``
+  cannot be imported.
+* No module of the port, nor ``chip_smoke.py`` or a port script,
   imports ``jax``, ``flax``, ``optax``, ``msgpack`` or the JAX package —
   compared on the exact top-level module name, since the port's own
   name begins with the JAX package's — nor names a JAX-package module,
@@ -37,15 +36,19 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack",
 PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-) + ["chip_smoke.py",
-     os.path.join("scripts", "torch_chaos_run.py"),
-     os.path.join("scripts", "torch_fleet_bench.py")]
+) + ["chip_smoke.py"] + sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
+PORT_SCRIPTS = ("torch_chaos_run", "torch_dataset_pack", "torch_fleet_bench",
+                "torch_serve_profile", "torch_telemetry_report")
 # A dotted JAX-package module name (or the bare package name), and the
 # aliases of the JAX package's file-path loaders.
 JAX_MODULE_NAME = re.compile(
     r"(?<![\w.])howtotrainyourmamlpytorch_tpu(?:\.\w|$)")
 JAX_ALIASES = ("_maml_fleet_router_sup", "_maml_fleet_retry_sup",
-               "_maml_fleet_reqtrace", "_maml_loadlab_trace")
+               "_maml_fleet_reqtrace", "_maml_loadlab_trace",
+               "_report_reqtrace_impl", "_telemetry_report_impl",
+               "_telemetry_tracing_impl", "_dataset_pack_sources")
 CONFIGS = sorted(os.path.basename(p) for p in glob.glob(
     os.path.join(REPO, "experiment_config", "*.json")))
 
@@ -87,9 +90,15 @@ def test_string_guard_catches_jax_module_names():
            'importlib.import_module("howtotrainyourmamlpytorch_tpu")',
            'sys.modules.get("_maml_fleet_router_sup")',
            'load("_maml_fleet_retry_sup")',
-           'spec("_maml_fleet_reqtrace", p)', 'spec("_maml_loadlab_trace")']
+           'spec("_maml_fleet_reqtrace", p)', 'spec("_maml_loadlab_trace")',
+           'spec("_report_reqtrace_impl", p)',
+           'load("_telemetry_report_impl", rel)',
+           'sys.modules.get("howtotrainyourmamlpytorch_tpu.telemetry'
+           '.reqtrace")']
     good = ['_PKG = "howtotrainyourmamlpytorch_tpu_torch.serve.fleet.router"',
-            '"_maml_torch_fleet_router_sup"',
+            '"_maml_torch_fleet_router_sup"', '"_maml_torch_report_reqtrace"',
+            'sys.modules.get("howtotrainyourmamlpytorch_tpu_torch.telemetry"'
+            ' ".reqtrace")',
             '"howtotrainyourmamlpytorch_tpu/ops/pallas_fused.py:67"',
             '"""the JAX package ``howtotrainyourmamlpytorch_tpu``."""']
     assert all(_jax_names_in_strings(src) for src in bad)
@@ -108,7 +117,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import importlib.util as u\n"
-        "for name in ('torch_chaos_run', 'torch_fleet_bench'):\n"
+        f"for name in {PORT_SCRIPTS!r}:\n"
         "    spec = u.spec_from_file_location(name, f'scripts/{name}.py')\n"
         "    spec.loader.exec_module(u.module_from_spec(spec))\n"
         "print(' '.join(mods))\n")
@@ -123,7 +132,16 @@ def test_every_port_module_imports_with_jax_blocked():
         "telemetry.reqtrace", "serve.fleet.l2cache", "serve.fleet.router",
         "serve.fleet.controller", "serve.fleet.supervisor",
         "serve.fleet.replica", "serve.loadlab.trace",
-        "serve.loadlab.workloads", "serve.loadlab.replay")} <= mods
+        "serve.loadlab.workloads", "serve.loadlab.replay",
+        "datastore", "datastore.format", "datastore.packed",
+        "telemetry.report")} <= mods
+
+
+def test_port_scripts_are_all_checked():
+    """Every ``scripts/torch_*.py`` is imported with jax blocked above."""
+    assert sorted(PORT_SCRIPTS) == sorted(
+        os.path.basename(p)[:-3]
+        for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

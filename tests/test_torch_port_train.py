@@ -680,10 +680,7 @@ def test_algorithm_gates_match_jax(algo):
                    for t in tree_leaves(new.opt_state.mu["lslr"]))
 
 
-@pytest.mark.parametrize("knob", [
-    dict(elastic_pad_tasks=2),
-    dict(msl_target_batching="on"), dict(remat_policy="conv_outs"),
-    dict(remat_policy="dots"), "reduce_axes"])
+@pytest.mark.parametrize("knob", [dict(elastic_pad_tasks=2), "reduce_axes"])
 def test_deferred_knobs_raise(knob):
     cfg, apply, st = _port_only(**(knob if isinstance(knob, dict) else {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -694,14 +691,24 @@ def test_deferred_knobs_raise(knob):
              use_msl=True)
 
 
-@pytest.mark.parametrize("knob", [dict(health_metrics_every_n_steps=1)])
+@pytest.mark.parametrize("knob", [
+    dict(health_metrics_every_n_steps=1),
+    dict(msl_target_batching="on"), dict(remat_policy="conv_outs"),
+    dict(remat_policy="dots")])
 def test_ported_knobs_build_and_run_one_step(knob):
-    """Knobs whose slice has landed build a train step and run it: with
-    the training-health metrics on, a step asked for them returns them,
-    every value finite."""
+    """Knobs whose slice has landed build a train step and run it, every
+    metric finite: with the training-health metrics on, a step asked for
+    them returns them; batched MSL targets and the selective remat
+    policies (tests/test_torch_port_msl_batched.py and
+    test_torch_port_remat.py hold their values) advance the step."""
     cfg, apply, st = _port_only(**knob)
-    _, m = outer.make_train_step(cfg, apply)(
+    health = bool(cfg.health_metrics_every_n_steps)
+    new, m = outer.make_train_step(cfg, apply)(
         st, _torch_batch(_batch(cfg, 9)), 0, second_order=True,
-        use_msl=True, health=True)
-    assert m.health and all(bool(torch.isfinite(v).all())
-                            for v in m.health.values())
+        use_msl=True, health=health)
+    assert new.step == st.step + 1
+    assert all(bool(torch.isfinite(v).all())
+               for v in (m.loss, m.accuracy, m.support_loss))
+    if health:
+        assert m.health and all(bool(torch.isfinite(v).all())
+                                for v in m.health.values())
