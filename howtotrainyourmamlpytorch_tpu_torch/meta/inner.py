@@ -36,11 +36,19 @@ reentry, and only where an outer backward will run:
 * ``'nothing'``: under second order the whole inner step (support
   forward, inner gradient, update, MSL target forward) is one segment,
   as ``jax.checkpoint(policy=nothing_saveable)``; under first order each
-  target forward is one segment.
+  target forward is one segment. A second-order step segment is a
+  :class:`_StepSegment` function, not a ``checkpoint``: its forward runs
+  the step on detached inputs and keeps no graph and no activation, and
+  the outer backward runs the step once more to differentiate it. So
+  the support forward runs twice per step, as under ``jax.checkpoint``
+  (once in the primal, once in the rematerialized linearization). A
+  non-reentrant ``checkpoint`` would run it three times: the inner
+  ``autograd.grad`` unpacks the checkpointed support activations during
+  the forward and so recomputes them there.
 * ``'conv_outs'`` and ``'dots'``: the segments of ``'nothing'``, run
   under a selective policy (:class:`SavePolicy`, through
-  ``checkpoint(context_fn=...)``) that keeps some op outputs from the
-  forward and recomputes the rest.
+  ``checkpoint(context_fn=...)`` or :class:`_StepSegment`'s modes) that
+  keeps some op outputs from the forward and recomputes the rest.
   ``'conv_outs'`` keeps the outputs computed inside
   ``models/layers.py § conv_out_tag`` (the JAX package's ``conv_out``
   name: every conv, the 1x1 skip's matmul included); ``'dots'`` keeps
@@ -49,7 +57,7 @@ reentry, and only where an outer backward will run:
   saves ``dot_general`` and ``conv_general_dilated``). The BN kernel is
   launched through ctypes between an ``aten.empty`` and its outputs, so
   no policy sees or keeps it: its ``autograd.Function`` forward, a
-  fresh launch, reruns in every recompute.
+  fresh launch, reruns in the recompute.
 
 MSL target batching (``msl_target_batching='on'``, JAX
 ``meta/inner.py:246-340``): where it is exact (MSL on, per-step BN
@@ -69,12 +77,14 @@ profiler records.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from collections import defaultdict
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils._pytree import tree_map as map_outputs
 from torch.utils.checkpoint import checkpoint
 
@@ -241,11 +251,9 @@ class _Keep(TorchDispatchMode):
 
 
 class _Replay(TorchDispatchMode):
-    """A segment's recompute: serves each kept op its forward output, in
-    order, and runs the rest. Unlike torch's selective checkpoint it
-    serves them to every recompute: under second order the inner
-    ``autograd.grad`` in the forward recomputes the support forward once
-    before the outer backward recomputes the whole step."""
+    """A segment's recompute in the outer backward: serves each kept op
+    its forward output, in order, and runs the rest. Each entry restarts
+    the order, so a second backward is served alike."""
 
     def __init__(self, policy: SavePolicy, store):
         super().__init__()
@@ -269,19 +277,88 @@ class _Replay(TorchDispatchMode):
         return _detached(kept[i][1])
 
 
+def _contexts(policy: str):
+    """The (forward, recompute) dispatch modes of one segment under
+    ``policy``: a kept-output store shared by :class:`_Keep` and
+    :class:`_Replay`, or no modes under ``'nothing'``."""
+    if policy == "nothing":
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    save, store = SavePolicy(policy), defaultdict(list)
+    return _Keep(save, store), _Replay(save, store)
+
+
 def segment_checkpoint(policy: str):
     """``checkpoint`` for one segment under ``policy`` (one of
     :data:`SEGMENT_POLICIES`), with its selective policy where it has
     one."""
     kwargs = dict(use_reentrant=False, preserve_rng_state=False)
     if policy != "nothing":
-        save = SavePolicy(policy)
-
-        def contexts():
-            store = defaultdict(list)
-            return _Keep(save, store), _Replay(save, store)
-        kwargs["context_fn"] = contexts
+        kwargs["context_fn"] = functools.partial(_contexts, policy)
     return functools.partial(checkpoint, **kwargs)
+
+
+def _fresh(x: torch.Tensor, needs_grad: bool) -> torch.Tensor:
+    return x.detach().requires_grad_(needs_grad)
+
+
+class _StepSegment(torch.autograd.Function):
+    """One second-order inner step as a segment (module docstring).
+    ``forward(ctx, fn, policy, box, *inputs)`` calls ``fn(inputs,
+    False)`` on fresh leaves of ``inputs`` (no inner graph) under the
+    policy's keeping mode, lets that graph go and returns ``fn``'s flat
+    tensor outputs detached; those that need no gradient there (the
+    support loss, the norm state) are marked non-differentiable.
+    ``box`` receives the outputs' pytree spec and which of its leaves
+    are None. ``backward`` calls ``fn(leaves, True)`` once more, under
+    the policy's replaying mode, and differentiates that."""
+
+    @staticmethod
+    def forward(ctx, fn, policy, box, *inputs):
+        keep, ctx.replay = _contexts(policy)
+        ctx.fn = fn
+        ctx.needs = [x.requires_grad for x in inputs]
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        with torch.enable_grad(), keep:
+            out, box["spec"] = tree_flatten(fn(
+                [_fresh(x, n) for x, n in zip(inputs, ctx.needs)], False))
+        box["none"] = [o is None for o in out]
+        out = [o for o in out if o is not None]
+        flat = tuple(o.detach() for o in out)
+        ctx.mark_non_differentiable(*(
+            x for x, o in zip(flat, out) if not o.requires_grad))
+        return flat
+
+    @staticmethod
+    def backward(ctx, *grads):
+        leaves = [_fresh(x, n) for x, n in zip(ctx.saved_tensors,
+                                               ctx.needs)]
+        with torch.enable_grad():
+            with ctx.replay:
+                out, _ = tree_flatten(ctx.fn(leaves, True))
+            out = [o for o in out if o is not None]
+            pairs = [(o, g) for o, g in zip(out, grads)
+                     if g is not None and o.requires_grad]
+            wrt = [x for x in leaves if x.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                allow_unused=True) if pairs and wrt else ())
+        return (None, None, None) + tuple(
+            next(got) if n else None for n in ctx.needs)
+
+
+def step_segment(policy: str, fn, *trees):
+    """``fn(*trees, create_graph)``, a second-order inner step, as a
+    :class:`_StepSegment` under ``policy``. ``fn`` returns a pytree of
+    tensors (None allowed), the same one as without the segment."""
+    flat, spec = tree_flatten(trees)
+    box = {}
+    out = _StepSegment.apply(
+        lambda leaves, graph: fn(*tree_unflatten(leaves, spec), graph),
+        policy, box, *flat)
+    out = iter(out)
+    return tree_unflatten([None if none else next(out)
+                           for none in box["none"]], box["spec"])
 
 
 def msl_batched(cfg: MAMLConfig, use_msl: bool) -> bool:
@@ -372,36 +449,40 @@ def task_forward(cfg: MAMLConfig, apply_fn, params: Params, lslr: Params,
     policy = (remat_policy(cfg) if _needs_outer_graph(params, lslr)
               else None)
     segmented = policy in SEGMENT_POLICIES
-    step_segment = segmented and second_order
-    segment = segment_checkpoint(policy) if segmented else None
+    whole_step = segmented and second_order
+    segment = (segment_checkpoint(policy)
+               if segmented and not whole_step else None)
     batched = msl_batched(cfg, use_msl)
 
-    def target_forward(fast, bn, step):
+    def target_forward(fast, bn, step, slow=slow, target_x=episode.target_x):
         run = merge_fast_slow(fast, slow)
-        if segmented and not step_segment:
+        if segment is not None:
             return segment(
-                lambda r, b: apply_fn(r, b, episode.target_x, step, True,
+                lambda r, b: apply_fn(r, b, target_x, step, True,
                                       plain=plain), run, bn)
-        return apply_fn(run, bn, episode.target_x, step, True, plain=plain,
+        return apply_fn(run, bn, target_x, step, True, plain=plain,
                         remat=policy == "block_outs")
 
-    def inner_step(fast, bn, step):
+    def inner_step(step, fast, bn, slow, lslr, episode, create_graph):
         fast, bn, s_loss = support_adapt_step(
             cfg, apply_fn, slow, lslr, episode.support_x, episode.support_y,
-            fast, bn, step, second_order=second_order, plain=plain)
+            fast, bn, step, second_order=create_graph, plain=plain)
         if batched or not use_msl:
             return fast, bn, s_loss, None, None
         with region("inner_msl_target_forward"):
-            t_logits, bn = target_forward(fast, bn, step)
+            t_logits, bn = target_forward(fast, bn, step, slow,
+                                          episode.target_x)
             t_loss = loss_fn(t_logits, episode.target_y)
         return fast, bn, s_loss, t_loss, t_logits
 
     s_losses, t_losses, fast_steps = [], [], []
     for step in range(num_steps):
-        if step_segment:
-            out = segment(inner_step, fast, bn, step)
+        if whole_step:
+            out = step_segment(policy, functools.partial(inner_step, step),
+                               fast, bn, slow, lslr, episode)
         else:
-            out = inner_step(fast, bn, step)
+            out = inner_step(step, fast, bn, slow, lslr, episode,
+                             second_order)
         fast, bn, s_loss, t_loss, t_logits = out
         s_losses.append(s_loss)
         t_losses.append(t_loss)

@@ -922,9 +922,13 @@ def _load_state(cfg: MAMLConfig, model_init, directory: str, tag,
     """A checkpoint through the trainer's resume chain (template from a
     fresh init, migrate, reconcile) on ``device``, and its file's
     fingerprint. Read-only: it neither quarantines nor sweeps the
-    directory, which may belong to a live training run."""
+    directory, which may belong to a live training run. A missing
+    checkpoint raises before anything touches the device, so a replica
+    booted on one fails without paying for a CUDA context."""
     ckpt = CheckpointManager(directory, max_to_keep=cfg.max_models_to_save,
                              quarantine=False)
+    if not ckpt.has_checkpoint(tag):
+        raise FileNotFoundError(ckpt.path(tag))
     template = init_train_state(cfg, model_init, seed=cfg.seed,
                                 device=device)
     template_shapes = state_leaf_shapes(template)

@@ -45,7 +45,9 @@ The stats frame also reports the BN kernel's launches in this process
 and the adapt and predict batches behind them (warm-ups and canaries
 included), and the device's peak memory.
 
-Started by ``scripts/torch_fleet_bench.py`` as::
+Started by ``scripts/torch_fleet_bench.py`` (and, through the port's
+supervisor, by ``scripts/torch_chaos_fleet.py`` and
+``scripts/torch_traffic_replay.py``) as::
 
     python -m howtotrainyourmamlpytorch_tpu_torch.serve.fleet.replica \
         --config cfg.json --replica-id 0 --fleet-dir <dir> \

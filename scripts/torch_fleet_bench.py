@@ -77,6 +77,74 @@ def bench_bucket(quick: bool):
     return (3, 4) if quick else (15, 2)
 
 
+def require_card(device: str) -> None:
+    """No CPU fallback: ``--device cuda`` on a box without a card stops
+    the harness before anything is spawned. Asks only whether a device
+    exists; this process makes no CUDA context."""
+    if device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device is available: the replicas "
+                             "serve on the card unless --device cpu is "
+                             "given")
+
+
+class _MiniMetrics:
+    """Counters, gauges and exact-value histograms, ``snapshot()``-able
+    into the artifact (the JAX harnesses' duck-typed registry, kept so
+    the chaos and replay artifacts snapshot alike)."""
+
+    class _C:
+        def __init__(self):
+            self.value = 0.0
+
+        def inc(self, amount: float = 1.0):
+            self.value += amount
+
+    class _G:
+        def __init__(self):
+            self.value = None
+
+        def set(self, v):
+            self.value = float(v)
+
+    class _H:
+        # Exact values (the frontend sees hundreds of requests, not
+        # millions), nearest-rank quantiles — no bucket error.
+        def __init__(self):
+            self.values: List[float] = []
+
+        def observe(self, v):
+            self.values.append(float(v))
+
+        def quantile(self, q):
+            if not self.values:
+                return None
+            return nearest_rank(sorted(self.values), q)
+
+        @property
+        def value(self):
+            return {"count": len(self.values),
+                    "sum": round(sum(self.values), 6),
+                    "p50": self.quantile(0.50),
+                    "p95": self.quantile(0.95)}
+
+    def __init__(self):
+        self._m: Dict[str, Any] = {}
+
+    def counter(self, name):
+        return self._m.setdefault(name, self._C())
+
+    def gauge(self, name):
+        return self._m.setdefault(name, self._G())
+
+    def histogram(self, name):
+        return self._m.setdefault(name, self._H())
+
+    def snapshot(self):
+        return {k: v.value for k, v in sorted(self._m.items())}
+
+
 def _can_bind_localhost() -> bool:
     try:
         with socket.socket() as s:
@@ -168,8 +236,10 @@ def _mode_prepare(cfg_path: str, ckpt_dir: str) -> int:
 
 
 def _mode_publish_v2(cfg_path: str, ckpt_dir: str) -> int:
-    """Publish a new version: v1's weights scaled by 1 + 1e-3 (different
-    bytes and fingerprint, still finite so the canary passes)."""
+    """Publish a new version: the newest published version's weights
+    scaled by 1 + 1e-3 (different bytes and fingerprint, still finite so
+    the canary passes), saved as the epoch after the newest on disk (a
+    trainer's checkpoint directory already holds several)."""
     import dataclasses
     import torch
     from howtotrainyourmamlpytorch_tpu_torch.ckpt.registry import (
@@ -187,17 +257,37 @@ def _mode_publish_v2(cfg_path: str, ckpt_dir: str) -> int:
     template = init_train_state(cfg, model_init, seed=cfg.seed,
                                 device="cpu")
     manager = CheckpointManager(ckpt_dir, max_to_keep=4)
-    state, _meta = manager.load(template, 0)
+    registry = ModelRegistry(ckpt_dir)
+    state, _meta = manager.load(template, registry.latest()["tag"])
     with torch.no_grad():
         state = dataclasses.replace(state, params=tree_map(
             lambda x: x * (1.0 + 1e-3), state.params))
-    manager.save(state, epoch=1, current_iter=2, val_acc=0.6)
-    rec = ModelRegistry(ckpt_dir).publish(
-        tag="1", epoch=1, iteration=2, val_acc=0.6,
-        fingerprint=manager.fingerprint(1))
+    epoch = 1 + max(int(name[len("train_model_"):-len(".ckpt")])
+                    for name in os.listdir(ckpt_dir)
+                    if name.startswith("train_model_")
+                    and name.endswith(".ckpt")
+                    and name[len("train_model_"):-len(".ckpt")].isdigit())
+    manager.save(state, epoch=epoch, current_iter=epoch + 1, val_acc=0.6)
+    rec = registry.publish(
+        tag=str(epoch), epoch=epoch, iteration=epoch + 1, val_acc=0.6,
+        fingerprint=manager.fingerprint(epoch))
     print(json.dumps({"published": True, "version": rec["version"]}),
           flush=True)
     return 0
+
+
+def prepare_checkpoint(out: str, cfg_path: str, ckpt_dir: str,
+                       source: Optional[str]) -> float:
+    """The checkpoint a harness serves, in ``ckpt_dir``: a copy of
+    ``source`` (a trainer's ``saved_models``, registry included; copied
+    because a rollout publishes into it), or else v1 written by the
+    ``prepare`` child. Returns the seconds it took."""
+    t0 = time.monotonic()
+    if source:
+        shutil.copytree(source, ckpt_dir)
+    else:
+        _run_child("prepare", cfg_path, ckpt_dir, out)
+    return round(time.monotonic() - t0, 1)
 
 
 def _run_child(mode: str, cfg_path: str, ckpt_dir: str, out: str):
@@ -910,6 +1000,7 @@ def main(argv=None) -> int:
         return _mode_prepare(args.config_path, args.ckpt_dir)
     if args.mode == "publish-v2":
         return _mode_publish_v2(args.config_path, args.ckpt_dir)
+    require_card(args.device)
 
     if args.quick:
         args.replicas = min(args.replicas, 2)
@@ -957,9 +1048,8 @@ def main(argv=None) -> int:
 
     registry = MetricsRegistry()
     try:
-        t_prep = time.monotonic()
-        _run_child("prepare", cfg_fleet, ckpt_dir, out)
-        artifact["prepare_seconds"] = round(time.monotonic() - t_prep, 1)
+        artifact["prepare_seconds"] = prepare_checkpoint(
+            out, cfg_fleet, ckpt_dir, None)
         from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
         mcfg = MAMLConfig.from_dict(cfg_doc)
         image_shape = mcfg.image_shape

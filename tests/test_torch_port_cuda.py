@@ -388,8 +388,8 @@ def test_pack_cli_run_on_the_card(cuda_device, tmp_path):
     """A tiny CLI run on the card trained from MAMLPACK1 shards under
     'on' + 'conv_outs': it reads the packed source, exits 0 and launches
     the kernel as derived (per train step: microbatches x stages x
-    (K + 1) in the first-order MSL epoch, x (3K + 1) in the second-order
-    one)."""
+    (K + 1) in the first-order MSL epoch, x (2K + 1) in the second-order
+    one: the step segment's forward, then its one recompute)."""
     from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
     from howtotrainyourmamlpytorch_tpu_torch.data import source_kind
     from howtotrainyourmamlpytorch_tpu_torch.datastore import write_shard
@@ -423,7 +423,7 @@ def test_pack_cli_run_on_the_card(cuda_device, tmp_path):
     b = builders[0]
     assert source_kind(b.data.sampler("train").source) == "packed"
     s, k, micro = 2, 2, 2
-    train = 2 * micro * s * (k + 1) + 2 * micro * s * (3 * k + 1)
+    train = 2 * micro * s * (k + 1) + 2 * micro * s * (2 * k + 1)
     per_eval = -(-4 // b.cfg.effective_eval_batch_size) * s * (k + 1)
     assert bn_act.launches == train + (2 + 1) * per_eval
 

@@ -39,12 +39,19 @@ PORT_FILES = sorted(
 ) + ["chip_smoke.py"] + sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
-PORT_SCRIPTS = ("torch_chaos_run", "torch_dataset_pack", "torch_fleet_bench",
-                "torch_serve_profile", "torch_telemetry_report")
+PORT_SCRIPTS = ("torch_chaos_fleet", "torch_chaos_run", "torch_dataset_pack",
+                "torch_fleet_bench", "torch_ops_console",
+                "torch_serve_bench", "torch_serve_profile",
+                "torch_slo_report", "torch_telemetry_report",
+                "torch_trace_export", "torch_traffic_replay")
 # A dotted JAX-package module name (or the bare package name), and the
 # aliases of the JAX package's file-path loaders.
 JAX_MODULE_NAME = re.compile(
     r"(?<![\w.])howtotrainyourmamlpytorch_tpu(?:\.\w|$)")
+# A string that IS a path to a JAX-package source file (what a file-path
+# loader opens); a citation with a line number or prose is not.
+JAX_MODULE_PATH = re.compile(
+    r"(?:.*[/\\])?howtotrainyourmamlpytorch_tpu[/\\][\w/\\.]*\.py")
 JAX_ALIASES = ("_maml_fleet_router_sup", "_maml_fleet_retry_sup",
                "_maml_fleet_reqtrace", "_maml_loadlab_trace",
                "_report_reqtrace_impl", "_telemetry_report_impl",
@@ -70,6 +77,7 @@ def _jax_names_in_strings(source):
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Constant) and isinstance(node.value, str):
             if (JAX_MODULE_NAME.search(node.value)
+                    or JAX_MODULE_PATH.fullmatch(node.value)
                     or any(a in node.value for a in JAX_ALIASES)):
                 out.append(node.value)
     return out
@@ -84,8 +92,10 @@ def test_no_jax_or_jax_package_import(relpath):
 
 
 def test_string_guard_catches_jax_module_names():
-    """The string check flags what the JAX package's fleet loaders use
-    and passes what the port's use (and plain file paths)."""
+    """The string check flags what the JAX package's fleet loaders and
+    its jax-free scripts use (module names, aliases, paths to its source
+    files) and passes what the port's use, a kernel citation with its
+    line and prose."""
     bad = ['_PKG = "howtotrainyourmamlpytorch_tpu.serve.fleet.router"',
            'importlib.import_module("howtotrainyourmamlpytorch_tpu")',
            'sys.modules.get("_maml_fleet_router_sup")',
@@ -94,12 +104,20 @@ def test_string_guard_catches_jax_module_names():
            'spec("_report_reqtrace_impl", p)',
            'load("_telemetry_report_impl", rel)',
            'sys.modules.get("howtotrainyourmamlpytorch_tpu.telemetry'
-           '.reqtrace")']
+           '.reqtrace")',
+           'os.path.join("howtotrainyourmamlpytorch_tpu", "telemetry",'
+           ' "alerts.py")',
+           'os.path.join(REPO, "howtotrainyourmamlpytorch_tpu/utils/'
+           'tracing.py")',
+           'spec(n, f"{root}/howtotrainyourmamlpytorch_tpu/serve/fleet/'
+           'router.py")']
     good = ['_PKG = "howtotrainyourmamlpytorch_tpu_torch.serve.fleet.router"',
             '"_maml_torch_fleet_router_sup"', '"_maml_torch_report_reqtrace"',
             'sys.modules.get("howtotrainyourmamlpytorch_tpu_torch.telemetry"'
             ' ".reqtrace")',
             '"howtotrainyourmamlpytorch_tpu/ops/pallas_fused.py:67"',
+            '"howtotrainyourmamlpytorch_tpu_torch/telemetry/alerts.py"',
+            '"""A copy of ``howtotrainyourmamlpytorch_tpu/config.py``."""',
             '"""the JAX package ``howtotrainyourmamlpytorch_tpu``."""']
     assert all(_jax_names_in_strings(src) for src in bad)
     assert not any(_jax_names_in_strings(src) for src in good)

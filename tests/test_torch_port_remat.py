@@ -177,6 +177,33 @@ def test_selective_policies_match_jax(policy):
                     assert _rel(g, w) <= 1e-3, (top, layer, leaf)
 
 
+@pytest.mark.parametrize("use_msl", [False, True])
+@pytest.mark.parametrize("policy,forwards", [
+    ("block_outs", STEPS), ("nothing", 2 * STEPS),
+    ("conv_outs", 2 * STEPS), ("dots", 2 * STEPS)])
+def test_second_order_step_runs_the_support_forward_twice(policy, forwards,
+                                                          use_msl):
+    """A second-order meta-gradient runs the support forward 2K times
+    under the step-segment policies (the step's forward, then its one
+    recompute in the outer backward, as ``jax.checkpoint``), K times
+    under 'block_outs'. Support and target sets differ in size here
+    (4 and 6 rows), which tells the forwards apart."""
+    cfg = MAMLConfig(**_kw("vgg", num_target_samples=3,
+                           remat_policy=policy))
+    _, apply = make_model(cfg)
+    rows = cfg.num_classes_per_set * cfg.num_samples_per_class
+    support = []
+
+    def counting(params, state, x, *a, **kw):
+        support.append(x.shape[1] == rows)
+        return apply(params, state, x, *a, **kw)
+    st = state_from_jax(*_init_trees("vgg"), device="cpu")
+    outer.make_meta_gradients(cfg, counting)(
+        st, _torch_batch(_batch(cfg)), EPOCH, second_order=True,
+        use_msl=use_msl)
+    assert sum(support) == forwards, (policy, support)
+
+
 def _kept_ops(monkeypatch, backbone, policy, second_order, use_msl):
     kept = []
 
@@ -205,9 +232,8 @@ def test_conv_outs_keeps_exactly_the_conv_outputs(monkeypatch, backbone,
     """``'conv_outs'`` keeps one output per conv of each forward in a
     segment (ResNet-12: 12 3x3 convs and 4 1x1 skip matmuls), nothing
     else: first order + MSL, K target-forward segments; second order,
-    K inner-step segments, each keeping its support forward's convs (the
-    forward-time recompute of the support forward is served from what
-    was kept) and, with MSL, its target forward's."""
+    K inner-step segments, each keeping its support forward's convs and,
+    with MSL, its target forward's."""
     for (so, msl), forwards in (((False, True), STEPS),
                                 ((True, False), STEPS),
                                 ((True, True), 2 * STEPS)):
