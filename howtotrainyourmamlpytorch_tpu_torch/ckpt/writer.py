@@ -129,12 +129,16 @@ class CheckpointWriter:
 
     # -- save API ----------------------------------------------------------
     def save(self, state, epoch: int, current_iter: int,
-             val_acc: float) -> None:
+             val_acc: float, write: bool = True) -> None:
         """Epoch save. Sync mode runs it here; async mode runs the
         snapshot and bookkeeping here and hands the files to the
-        worker."""
+        worker. ``write=False`` (a process other than 0) updates the
+        bookkeeping only."""
         mgr = self.manager
         t0 = time.perf_counter()
+        if not write:
+            mgr.save(state, epoch, current_iter, val_acc, write=False)
+            return
         if not self.async_saves:
             with watchdog.phase("ckpt", detail=int(epoch)):
                 self.last_save_bytes = mgr.save(state, epoch, current_iter,
@@ -158,13 +162,14 @@ class CheckpointWriter:
         self.last_save_bytes = len(data)
         self.last_save_seconds = time.perf_counter() - t0
 
-    def save_latest(self, state, current_iter: int) -> None:
+    def save_latest(self, state, current_iter: int,
+                    write: bool = True) -> None:
         """The preemption/rewind snapshot (``train_model_latest`` only):
         always synchronous, after a drain, so the caller proceeds only
         once the snapshot is durable and no epoch write is in flight."""
         self.drain()
         with watchdog.phase("ckpt", detail="latest"):
-            self.manager.save_latest(state, current_iter)
+            self.manager.save_latest(state, current_iter, write=write)
 
     def _enqueue(self, job) -> bool:
         self._ensure_thread()

@@ -28,8 +28,13 @@ phase ``feed`` before it blocks on the next batch (a wait past
 sleeps the worker at a train iteration and ``episode_corrupt`` fails the
 first attempt at an episode index (``resilience/faults.py``).
 
-Not ported yet: mesh placement and multi-host assembly and the elastic
-pad (ROADMAP.md, Queue 1: parallel/mesh slice).
+Over a mesh of ranks (``mesh``, ``parallel/mesh.py``) each rank samples
+only its own positions ``[r·L, (r+1)·L)`` of every global batch
+(``parallel/multihost.py § assemble_global_batch``): the stream is
+indexed as above, so the ranks agree on the global batch without
+exchanging a byte. With ``elastic_pad_tasks`` the train batch's global
+tail holds that many zero episodes, which the train step masks; the
+stream stays indexed by the real ``batch_size``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from howtotrainyourmamlpytorch_tpu_torch.data.sources import build_source
 from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
                                                         resolve_device)
 from howtotrainyourmamlpytorch_tpu_torch.meta.inner import Episode
+from howtotrainyourmamlpytorch_tpu_torch.parallel.multihost import (
+    assemble_global_batch, local_batch_positions)
 from howtotrainyourmamlpytorch_tpu_torch.resilience import faults, watchdog
 from howtotrainyourmamlpytorch_tpu_torch.telemetry.instruments import (
     FeedStallMeter)
@@ -73,16 +80,14 @@ class MetaLearningDataLoader:
     """Per-split samplers yielding meta-batches as tensors on ``device``
     (the card by default; ``device="cpu"`` must be asked for).
     ``registry`` (a ``telemetry.MetricsRegistry``) receives the loader's
-    counters."""
+    counters; ``mesh`` (a ``parallel.mesh.Mesh``) makes every batch this
+    rank's shard."""
 
     def __init__(self, cfg: MAMLConfig, device: DeviceLike = None,
-                 registry=None):
-        if cfg.elastic_pad_tasks > 0:
-            raise NotImplementedError(
-                "elastic_pad_tasks > 0 (elastic pad-and-mask) is not ported "
-                "yet (ROADMAP.md, Queue 1: parallel/mesh slice)")
+                 registry=None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._samplers = {}
         self._train_salt = 0
         self._corrupt_warned = False
@@ -141,6 +146,20 @@ class MetaLearningDataLoader:
         eps = [self._sample_episode(sampler, i) for i in indices]
         return Episode(*(np.stack(field) for field in zip(*eps)))
 
+    def _zero_episodes(self, n: int) -> Episode:
+        """``n`` all-zero pad tasks in the wire dtypes. Elastic pad
+        positions only: the train step gives them exactly zero weight,
+        and zeros keep every forward finite."""
+        cfg = self.cfg
+        h, w, c = cfg.image_shape
+        img = np.uint8 if cfg.transfer_images_uint8 else np.float32
+        lbl = np.dtype(cfg.label_dtype)
+        return Episode(
+            np.zeros((n, cfg.num_support_per_task, h, w, c), img),
+            np.zeros((n, cfg.num_support_per_task), lbl),
+            np.zeros((n, cfg.num_target_per_task, h, w, c), img),
+            np.zeros((n, cfg.num_target_per_task), lbl))
+
     # -- device placement -------------------------------------------------
     def _place(self, batch: Episode, stream):
         """Host batch -> ``(Episode of tensors on the device, event)``.
@@ -160,8 +179,14 @@ class MetaLearningDataLoader:
         return out, event
 
     def _batches(self, split: str, start_idx: int, num_batches: int,
-                 batch_size: int) -> Iterator[Episode]:
+                 batch_size: int, pad_tasks: int = 0) -> Iterator[Episode]:
         sampler = self.sampler(split)
+        # The steps see batch_size + pad_tasks positions (pads are the
+        # global tail); the stream stays indexed by batch_size. A rank
+        # of a mesh samples only its own positions.
+        padded = batch_size + pad_tasks
+        positions = ((0, padded) if self.mesh is None
+                     else local_batch_positions(self.mesh, padded))
         q: "queue.Queue" = queue.Queue(
             maxsize=max(1, self.cfg.prefetch_batches))
         abandoned = threading.Event()
@@ -193,8 +218,21 @@ class MetaLearningDataLoader:
                     if faults.maybe_fire("hang_feed", step=start_idx + b):
                         faults.hang()
                     base = (start_idx + b) * batch_size + salt
-                    batch = self._sample_batch(
-                        sampler, range(base, base + batch_size))
+
+                    def sample_range(s: int, e: int) -> Episode:
+                        parts = []
+                        if s < batch_size:
+                            parts.append(self._sample_batch(sampler, range(
+                                base + s, base + min(e, batch_size))))
+                        if e > batch_size:
+                            parts.append(self._zero_episodes(
+                                e - max(s, batch_size)))
+                        return (parts[0] if len(parts) == 1 else Episode(
+                            *(np.concatenate(f) for f in zip(*parts))))
+
+                    batch = assemble_global_batch(
+                        sample_range, padded, self.mesh,
+                        positions=positions)
                     put_bounded(self._place(batch, stream))
             except Exception as e:  # surface in the consumer, don't hang
                 put_bounded(e)
@@ -240,7 +278,8 @@ class MetaLearningDataLoader:
                           num_iters: int) -> Iterator[Episode]:
         """Batches for train iterations [start_iter, start_iter+num_iters)."""
         return self._batches("train", start_iter, num_iters,
-                             self.cfg.batch_size)
+                             self.cfg.batch_size,
+                             pad_tasks=self.cfg.elastic_pad_tasks)
 
     def _eval_batches(self, split: str) -> Iterator[Episode]:
         cfg = self.cfg

@@ -1,6 +1,6 @@
 """Experiment orchestration: train loop, validation sweeps, checkpointing,
 and the top-k ensemble test protocol (the port's counterpart of the JAX
-package's ``experiment.py § ExperimentBuilder``, on one device).
+package's ``experiment.py § ExperimentBuilder``).
 
 Reference (``experiment_builder.py § ExperimentBuilder``): per epoch,
 ``total_iter_per_epoch`` train iterations → a full validation sweep → a
@@ -63,9 +63,26 @@ Resilience (``resilience/``), at the JAX package's loop points:
 
 Checkpoints, ``state.json``, ``MANIFEST.json``, ``REGISTRY.json`` and the
 CSVs are the JAX package's formats: either package resumes, evaluates or
-serves the other's run. Not ported yet (each raises when set away from its
-default, naming its ROADMAP.md Queue 1 item): the mesh, the AOT store and
-compile cache, the pod fault domain and elastic mode.
+serves the other's run.
+
+Several processes (torchrun; ``parallel/``): the builder runs on the
+(dcn, tasks) mesh of the process group, one rank per device. Its
+geometry: a mesh that the world does not realize raises with
+``require_mesh=1`` and otherwise warns and falls back to (1, 1) (with
+several processes it must match the world exactly). Process 0 alone
+writes ``config.json``, checkpoints, ``state.json``, the CSVs,
+``events.jsonl`` and the timeline; every rank keeps the checkpoint
+bookkeeping. Filesystem-dependent decisions are agreed across ranks:
+fresh run or resume, which checkpoint, its iteration and its content
+fingerprint, a rewind's target, each ensemble member's fingerprint, and
+the stop decisions (divergence rewind, preemption) at every sync point
+and epoch boundary. Barriers order process 0's writes before the
+others' reads (``builder_init``, ``checkpoints_written``). Crash bundles
+go to ``crash_bundle_p<rank>``.
+
+Not ported yet (each raises when set away from its default, naming its
+ROADMAP.md Queue 1 item): the AOT store and compile cache, the pod fault
+domain and elastic mode.
 """
 
 from __future__ import annotations
@@ -88,14 +105,18 @@ from howtotrainyourmamlpytorch_tpu_torch.data.loader import (
     MetaLearningDataLoader)
 from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
                                                         numerics_policy,
-                                                        resolve_device,
                                                         synchronize)
 from howtotrainyourmamlpytorch_tpu_torch.meta.inner import (
     adapted_param_counts)
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
-    MetaTrainState, init_train_state, make_eval_step, make_train_step,
-    migrate_lslr_rows, reconcile_loaded_shapes, state_leaf_shapes)
+    MetaTrainState, init_train_state, migrate_lslr_rows, reconcile_loaded_shapes, state_leaf_shapes)
 from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
+from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import (
+    make_mesh, make_sharded_steps)
+from howtotrainyourmamlpytorch_tpu_torch.parallel.multihost import (
+    abort_all_if_any, agree_int_from_main, any_process_true,
+    any_process_true_each, barrier)
 from howtotrainyourmamlpytorch_tpu_torch.resilience import (EXIT_PREEMPTED,
                                                             DivergenceGuard,
                                                             faults,
@@ -119,20 +140,16 @@ def refuse_unported_knobs(cfg: MAMLConfig) -> None:
     """Raise ``NotImplementedError`` for a knob whose subsystem the port
     does not have yet, set away from its default: a run must not quietly
     do less than its config says."""
+    pod = "pod fault domain (item 8b)"
     checks = (
-        (tuple(cfg.mesh_shape) != (1, 1),
-         f"mesh_shape {tuple(cfg.mesh_shape)} (a device mesh)",
-         "parallel/mesh slice"),
         (bool(cfg.aot_store_dir), "aot_store_dir (the AOT executable store)",
          "AOT/compile-cache slice"),
         (bool(cfg.compilation_cache_dir),
          "compilation_cache_dir (the persistent compile cache)",
          "AOT/compile-cache slice"),
         (cfg.cluster_collective_timeout_s > 0,
-         "cluster_collective_timeout_s > 0 (the pod fault domain)",
-         "parallel/mesh slice"),
-        (bool(cfg.elastic_mode), "elastic_mode (elastic resharding)",
-         "parallel/mesh slice"),
+         "cluster_collective_timeout_s > 0 (the pod fault domain)", pod),
+        (bool(cfg.elastic_mode), "elastic_mode (elastic resharding)", pod),
     )
     for unported, what, item in checks:
         if unported:
@@ -140,14 +157,42 @@ def refuse_unported_knobs(cfg: MAMLConfig) -> None:
                 f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})")
 
 
+def _mesh_geometry(cfg: MAMLConfig, world: int) -> MAMLConfig:
+    """The config whose ``mesh_shape`` this world realizes: with several
+    processes it must cover them exactly; one process with a bigger mesh
+    raises under ``require_mesh=1`` and otherwise warns and falls back to
+    (1, 1)."""
+    n_mesh = int(np.prod(cfg.mesh_shape))
+    if world > 1 and n_mesh != world:
+        raise ValueError(
+            f"mesh_shape {cfg.mesh_shape} covers {n_mesh} devices but "
+            f"the pod exposes {world}; multi-host runs need mesh size == "
+            f"global device count")
+    if n_mesh <= world:
+        return cfg
+    if cfg.require_mesh:
+        raise ValueError(
+            f"mesh_shape {cfg.mesh_shape} needs {n_mesh} devices but "
+            f"only {world} are visible and require_mesh=1; fix the "
+            f"mesh/pod geometry or unset require_mesh to accept the "
+            f"single-device fallback")
+    warnings.warn(
+        f"mesh_shape {cfg.mesh_shape} needs {n_mesh} devices but {world} "
+        f"are visible; falling back to a single-device mesh")
+    return cfg.replace(mesh_shape=(1, 1))
+
+
 class ExperimentBuilder:
     """Builds and runs one experiment described by a :class:`MAMLConfig`,
     on ``device`` (the card by default; ``device="cpu"`` must be asked
-    for)."""
+    for), over the mesh of the process group when there is one."""
 
     def __init__(self, cfg: MAMLConfig, device: DeviceLike = None):
         refuse_unported_knobs(cfg)
-        self.device = resolve_device(device)
+        self.device = multihost.rank_device(device)
+        # Every rank computes; process 0 alone writes the shared files.
+        self.is_main_process = multihost.process_index() == 0
+        self._multihost = multihost.process_count() > 1
         # Telemetry registry first: storage retries and checkpoint saves
         # below count into it (the last constructed builder's registry
         # is the process's).
@@ -159,10 +204,12 @@ class ExperimentBuilder:
                          or cfg.fault_spec)
         self.paths = build_experiment_folder(cfg.experiment_root,
                                              cfg.experiment_name)
-        eff_mb = cfg.effective_task_microbatches()
+        cfg = _mesh_geometry(cfg, multihost.process_count())
+        eff_mb = cfg.effective_task_microbatches(
+            int(np.prod(cfg.mesh_shape)))
         if eff_mb != cfg.task_microbatches:
             msg = (f"task_microbatches {cfg.task_microbatches} clamped to "
-                   f"{eff_mb} for this batch geometry (see "
+                   f"{eff_mb} for this batch/mesh geometry (see "
                    f"MAMLConfig.effective_task_microbatches); the recorded "
                    f"config reflects what actually runs")
             warnings.warn(msg)
@@ -170,23 +217,35 @@ class ExperimentBuilder:
             cfg = cfg.replace(task_microbatches=eff_mb)
         self.cfg = cfg
         # The recorded config reflects what actually runs.
-        save_to_json(f"{self.paths['base']}/config.json", cfg.to_dict())
+        if self.is_main_process:
+            save_to_json(f"{self.paths['base']}/config.json", cfg.to_dict())
 
         self.model_init, self.model_apply = make_model(cfg)
-        self.train_step = make_train_step(cfg, self.model_apply)
-        self.eval_step = make_eval_step(cfg, self.model_apply)
+        self.mesh = make_mesh(cfg)
+        print(self.mesh.describe(self.device), flush=True)
+        # Without a process group the mesh reduces nothing, and the
+        # steps are the plain ones.
+        plan = make_sharded_steps(cfg, self.model_apply, self.mesh)
+        self.train_step, self.eval_step = plan.train_step, plan.eval_step
         self.data = MetaLearningDataLoader(cfg, device=self.device,
-                                           registry=self.registry)
+                                           registry=self.registry,
+                                           mesh=self.mesh)
+        # Process 0's earlier writes (a previous run's saves, a
+        # preemption snapshot) land before any rank reads state.json.
+        barrier("builder_init")
         self.ckpt = CheckpointManager(self.paths["saved_models"],
-                                      max_to_keep=cfg.max_models_to_save)
+                                      max_to_keep=cfg.max_models_to_save,
+                                      quarantine=self.is_main_process)
         # The async worker thread starts at the first async save, so a
         # builder that is never run leaks nothing.
         self.ckpt_writer = ckpt_writer.CheckpointWriter(
             self.ckpt, async_saves=bool(cfg.ckpt_async),
-            queue_policy=cfg.ckpt_queue_policy, publish=cfg.ckpt_publish)
+            queue_policy=cfg.ckpt_queue_policy,
+            publish=cfg.ckpt_publish and self.is_main_process)
         # Size-capped at 64 MiB: one rotation into events.jsonl.1.
         self.jsonl = JsonlLogger(f"{self.paths['logs']}/events.jsonl",
-                                 max_bytes=64 * 1024 * 1024)
+                                 max_bytes=64 * 1024 * 1024,
+                                 enabled=self.is_main_process)
         # Alert rules (telemetry/alerts.py), evaluated at the registry
         # flush points only; None when alert_rules_path is unset.
         self._alerts: Optional[alerts_mod.AlertEvaluator] = None
@@ -194,7 +253,8 @@ class ExperimentBuilder:
         if cfg.alert_rules_path:
             self._alerts = alerts_mod.AlertEvaluator(
                 alerts_mod.load_rules(cfg.alert_rules_path), source="train",
-                snapshot_path=f"{self.paths['logs']}/ALERTS.json")
+                snapshot_path=(f"{self.paths['logs']}/ALERTS.json"
+                               if self.is_main_process else None))
             # A scrape before the first evaluation reads 0 firing.
             self.registry.gauge(alerts_mod.FIRING_GAUGE).set(0.0)
         self._feed_prev: Optional[Dict[str, float]] = None
@@ -253,26 +313,85 @@ class ExperimentBuilder:
         return reconcile_loaded_shapes(self.cfg, state, template_shapes)
 
     def _resume(self, tag) -> None:
+        """Fresh run or resume, which checkpoint and which iteration are
+        filesystem-dependent decisions that every process must make alike
+        (ranks entering the loop at different iterations deadlock in
+        their first mismatched collective): process 0's resolution is
+        adopted everywhere, and a process that cannot comply aborts
+        every process. ``tag`` itself is config, identical on all ranks,
+        so every rank runs the same collectives."""
+        is_latest = -1
         from_latest = tag == LATEST
-        if from_latest and not (self.ckpt.has_any_checkpoint()
-                                or self.ckpt.meta_from_disk):
+        # OR-reduce: if ANY rank sees checkpoint files or bookkeeping,
+        # this is not a fresh run.
+        if from_latest and not any_process_true(
+                self.ckpt.has_any_checkpoint() or self.ckpt.meta_from_disk):
             return  # fresh run with continue_from_epoch='latest'
         template_shapes = state_leaf_shapes(self.state)
+        err: Optional[BaseException] = None
+        state, meta = self.state, {}
+        try:
+            if from_latest:
+                # Falls back to the newest readable epoch checkpoint if
+                # the latest file is missing or damaged.
+                state, meta, tag = self.ckpt.load_latest_or_fallback(
+                    self.state)
+            else:
+                state, meta = self.ckpt.load(self.state, tag)
+        except Exception as e:  # noqa: BLE001 — re-raised on every rank
+            err = e
+        abort_all_if_any(err, "a peer process has no readable checkpoint")
         if from_latest:
-            # Falls back to the newest readable epoch checkpoint if the
-            # latest file is missing or damaged.
-            state, meta, tag = self.ckpt.load_latest_or_fallback(self.state)
-        else:
-            state, meta = self.ckpt.load(self.state, tag)
-        self.current_iter = int(meta["current_iter"])
+            # The fallback resolution is per-process; adopt process 0's.
+            local = is_latest if tag == LATEST else int(tag)
+            agreed = agree_int_from_main(local)
+            if agreed != local:
+                tag = LATEST if agreed == is_latest else int(agreed)
+                try:
+                    state, meta = self.ckpt.load(self.state, tag)
+                except Exception as e:  # noqa: BLE001 — as above
+                    err = e
+            abort_all_if_any(err, f"a peer process could not load the "
+                                  f"agreed checkpoint {tag!r}")
+        # The same tag can still mean other bytes (a stale filesystem
+        # cache): the iteration must agree too, then the fingerprint.
+        local_iter = int(meta["current_iter"])
+        agreed_iter = agree_int_from_main(local_iter)
+        if any_process_true(agreed_iter != local_iter):
+            detail = (
+                f"THIS process diverges: local iter {local_iter} vs "
+                f"process 0's {agreed_iter} — stale filesystem cache?"
+                if agreed_iter != local_iter else
+                f"a peer process's iteration differs from process 0's "
+                f"{agreed_iter} (this process agrees)")
+            raise RuntimeError(
+                "processes disagree on the resume iteration; aborting all "
+                "processes instead of deadlocking in the first mismatched "
+                "collective. " + detail)
+        self.current_iter = local_iter
+        self._agree_checkpoint_fingerprint(tag, "resume")
         if tag != LATEST:
             # Epochs after the resume point are abandoned; their
             # checkpoints must not feed the top-k ensemble.
-            self.ckpt.rewind_to(int(tag))
+            self.ckpt.rewind_to(int(tag), write=self.is_main_process)
         state = migrate_lslr_rows(self.cfg, state)
         self.state = reconcile_loaded_shapes(self.cfg, state,
                                              template_shapes)
         print(f"resumed from checkpoint {tag!r} at iter {self.current_iter}")
+
+    def _agree_checkpoint_fingerprint(self, tag, context: str) -> None:
+        """With several processes: checkpoint ``tag``'s bytes must match
+        process 0's (a cheap content fingerprint and one collective).
+        State is never broadcast, so this is what catches a stale cache
+        serving one rank old bytes under the agreed tag."""
+        if not self._multihost:
+            return
+        local_fp = self.ckpt.fingerprint(tag)
+        if any_process_true(agree_int_from_main(local_fp) != local_fp):
+            raise RuntimeError(
+                f"processes disagree on the {context} checkpoint {tag!r}'s "
+                f"content fingerprint (same tag, different bytes — stale "
+                f"filesystem cache?); aborting all processes")
 
     # ------------------------------------------------------------------
     @property
@@ -291,7 +410,8 @@ class ExperimentBuilder:
         second_order, use_msl = cfg.use_second_order(epoch), cfg.use_msl(epoch)
         phase_key = (second_order, use_msl)
         card_name = profiler_mod.phase_card_name(*phase_key)
-        live = cfg.live_progress and cfg.dispatch_sync_every > 0
+        live = (cfg.live_progress and cfg.dispatch_sync_every > 0
+                and self.is_main_process)
         live_tty = live and getattr(sys.stdout, "isatty", lambda: False)()
         live_samples: List[tuple] = []
         metrics_acc = []   # per step: (loss, accuracy, support loss) tensors
@@ -399,12 +519,18 @@ class ExperimentBuilder:
                         # The real preemption path: handler -> flag ->
                         # snapshot.
                         signal.raise_signal(signal.SIGTERM)
+                    if self._multihost:
+                        # One OR-reduce for both stop decisions: a lone
+                        # rank's signal must stop every rank at the SAME
+                        # iteration.
+                        rewind, self._preempted = any_process_true_each(
+                            (rewind, self._preempted))
                     if rewind:
                         self._rewind_requested = True
                         break
                     if self._preempted:
                         break
-                elif self._preempted:
+                elif self._preempted and not self._multihost:
                     break
         finally:
             # Stops the loader's prefetch thread on a break or an error.
@@ -423,7 +549,8 @@ class ExperimentBuilder:
         if self._preempted:
             # Mid-epoch snapshot to 'latest' only; resume continues at
             # exactly this iteration with the same batch stream.
-            self.ckpt_writer.save_latest(self.state, self.current_iter)
+            self.ckpt_writer.save_latest(self.state, self.current_iter,
+                                         write=self.is_main_process)
             self.jsonl.log("preempt_checkpoint", iter=self.current_iter)
             # Final registry snapshot: counters since the last epoch
             # flush must not die with the process.
@@ -442,11 +569,11 @@ class ExperimentBuilder:
             "meta_lr": float(meta_lr),
             "epoch_seconds": dt,
             "meta_tasks_per_sec": tasks / dt,
-            "meta_tasks_per_sec_per_chip": tasks / dt,
+            "meta_tasks_per_sec_per_chip": tasks / dt / self.mesh.size,
         }
         # Host dispatch intervals; the epoch-end sync folds the device's
         # tail into the last one.
-        tsum = timer.summary(cfg.batch_size)
+        tsum = timer.summary(cfg.batch_size, self.mesh.size)
         self.jsonl.log("train_epoch", epoch=epoch, iter=self.current_iter,
                        second_order=second_order, use_msl=use_msl, **stats,
                        **{f"dispatch_{k}": v for k, v in tsum.items()})
@@ -531,6 +658,7 @@ class ExperimentBuilder:
         emit_heartbeat(self.jsonl, epoch=epoch, iteration=self.current_iter,
                        local_mean_step_seconds=tsum.get(
                            "mean_step_seconds", 0.0),
+                       process_index=self.mesh.rank,
                        progress_age_seconds=progress_age,
                        progress_phase=(beacon.current()[0]
                                        if beacon is not None else None),
@@ -554,10 +682,12 @@ class ExperimentBuilder:
 
     def _flush_registry(self, **extra) -> None:
         """Alert pass, then the registry as one ``metrics`` row and
-        ``logs/metrics.prom``."""
+        ``logs/metrics.prom`` (process 0)."""
         self._evaluate_alerts()
         self.registry.flush_jsonl(self.jsonl, **extra)
-        self.registry.write_prometheus(f"{self.paths['logs']}/metrics.prom")
+        if self.is_main_process:
+            self.registry.write_prometheus(
+                f"{self.paths['logs']}/metrics.prom")
 
     def _eval_batches(self, split: str) -> Iterable:
         """The split's fixed evaluation batches, device-cached after the
@@ -606,8 +736,10 @@ class ExperimentBuilder:
 
     # ------------------------------------------------------------------
     def _bundle_dir(self) -> str:
-        """Where this run's crash bundles go."""
-        return os.path.join(self.paths["logs"], "crash_bundle")
+        """Where this run's crash bundles go: one per process with
+        several, so ranks do not overwrite each other's forensics."""
+        suffix = f"_p{self.mesh.rank}" if self._multihost else ""
+        return os.path.join(self.paths["logs"], f"crash_bundle{suffix}")
 
     def run_experiment(self) -> Dict[str, Any]:
         """Train, validate and test under the entry point's numerics
@@ -629,7 +761,8 @@ class ExperimentBuilder:
                 self._beacon, deadlines, bundle_dir=self._bundle_dir(),
                 registry=self.registry, jsonl=self.jsonl,
                 prom_path=f"{self.paths['logs']}/metrics.prom",
-                poll_interval_s=cfg.watchdog_poll_interval_s).start()
+                poll_interval_s=cfg.watchdog_poll_interval_s,
+                process_index=self.mesh.rank).start()
             # Every metrics row shows "0 trips", not a missing counter.
             self.registry.counter(watchdog.TRIPS_COUNTER)
         if cfg.profile_every_n_steps > 0:
@@ -649,7 +782,7 @@ class ExperimentBuilder:
                 flightrec.write_crash_bundle(
                     self._bundle_dir(), reason="preempted",
                     info={"iter": self.current_iter},
-                    registry=self.registry)
+                    registry=self.registry, process_index=self.mesh.rank)
             return result
         except BaseException as e:
             # Not for SystemExit: an orderly exit carries no mystery.
@@ -659,7 +792,7 @@ class ExperimentBuilder:
                     self._bundle_dir(),
                     reason=f"exception:{type(e).__name__}",
                     info={"error": str(e)[:500], "iter": self.current_iter},
-                    registry=self.registry)
+                    registry=self.registry, process_index=self.mesh.rank)
             raise
         finally:
             # Drain and stop the async writer: an orderly exit leaves
@@ -676,7 +809,8 @@ class ExperimentBuilder:
                 self._watchdog.stop()
                 self._watchdog = None
             if self._perf is not None:
-                self._write_profile_json()
+                if self.is_main_process:
+                    self._write_profile_json()
                 flightrec.register_profile(prev_profile)
             if wd_enabled:
                 watchdog.install_beacon(prev_beacon)
@@ -748,6 +882,11 @@ class ExperimentBuilder:
                 val_stats["seconds"] = time.perf_counter() - t0
                 epochs_this_session += 1
                 self._finish_epoch(epoch, train_stats, val_stats)
+                if self._multihost:
+                    # The epoch-boundary stop decision is agreed too: a
+                    # rank leaving while others start the next epoch
+                    # would hang their first all-reduce.
+                    self._preempted = any_process_true(self._preempted)
         finally:
             for sig, prev in prev_handlers:
                 signal.signal(sig, prev)
@@ -795,28 +934,49 @@ class ExperimentBuilder:
         # before a rewind target is picked.
         self.ckpt_writer.drain()
         rewinds = int(self.ckpt.meta.get("rewinds", 0)) + 1
-        if rewinds > cfg.divergence_max_rewinds:
-            raise RuntimeError(
-                f"outer loss diverged again after {rewinds - 1} rewind(s) "
-                f"(divergence_max_rewinds={cfg.divergence_max_rewinds}); a "
-                f"loss that keeps diverging from a good checkpoint is a "
-                f"bug, not a transient — failing loudly")
-        candidates = sorted(
-            (int(e) for e in self.ckpt.meta["iter_at_epoch"]
-             if self.ckpt.has_checkpoint(int(e))),
-            key=lambda e: self.ckpt.meta["iter_at_epoch"][str(e)],
-            reverse=True)
-        if not candidates:
-            raise RuntimeError(
-                "outer loss diverged before any epoch checkpoint exists; "
-                "nothing to rewind to — fix the config (lr/clip) or seed")
-        tag = candidates[0]
-        self.state = self._load_member(tag)
+        err: Optional[BaseException] = None
+        tag = -1
+        try:
+            if rewinds > cfg.divergence_max_rewinds:
+                raise RuntimeError(
+                    f"outer loss diverged again after {rewinds - 1} "
+                    f"rewind(s) (divergence_max_rewinds="
+                    f"{cfg.divergence_max_rewinds}); a loss that keeps "
+                    f"diverging from a good checkpoint is a bug, not a "
+                    f"transient — failing loudly")
+            candidates = sorted(
+                (int(e) for e in self.ckpt.meta["iter_at_epoch"]
+                 if self.ckpt.has_checkpoint(int(e))),
+                key=lambda e: self.ckpt.meta["iter_at_epoch"][str(e)],
+                reverse=True)
+            if not candidates:
+                raise RuntimeError(
+                    "outer loss diverged before any epoch checkpoint "
+                    "exists; nothing to rewind to — fix the config "
+                    "(lr/clip) or seed")
+            tag = candidates[0]
+        except RuntimeError as e:
+            err = e
+        # Every rank raises, or every rank rewinds to process 0's pick.
+        abort_all_if_any(err, "a peer process could not pick a rewind "
+                              "checkpoint")
+        tag = agree_int_from_main(tag)
+        state = None
+        try:
+            state = self._load_member(tag)
+        except Exception as e:  # noqa: BLE001 — re-raised on every rank
+            err = e
+        abort_all_if_any(err, f"a peer process could not load the rewind "
+                              f"checkpoint {tag}")
+        self._agree_checkpoint_fingerprint(tag, "rewind")
+        self.state = state
         self.ckpt.meta["rewinds"] = rewinds
-        self.ckpt.rewind_to(tag)   # persists the rewind count too
+        # Persists the rewind count too (process 0).
+        self.ckpt.rewind_to(tag, write=self.is_main_process)
         self.current_iter = int(self.ckpt.meta["current_iter"])
         # 'latest' still holds the abandoned window's weights.
-        self.ckpt_writer.save_latest(self.state, self.current_iter)
+        self.ckpt_writer.save_latest(self.state, self.current_iter,
+                                     write=self.is_main_process)
         self.data.set_train_salt(rewinds)
         # Post-rewind iterations restart below the poisoned window: the
         # health cadence and the warn guard's norm history restart too.
@@ -835,7 +995,8 @@ class ExperimentBuilder:
         row = {"epoch": epoch, **train_stats,
                "val_loss": val_stats["loss"],
                "val_accuracy": val_stats["accuracy"]}
-        save_statistics(self.paths["logs"], row)
+        if self.is_main_process:
+            save_statistics(self.paths["logs"], row)
         self.jsonl.log("validation", epoch=epoch,
                        val_loss=val_stats["loss"],
                        val_accuracy=val_stats["accuracy"],
@@ -847,10 +1008,14 @@ class ExperimentBuilder:
         # triggered them.
         self._flush_registry(epoch=epoch)
         self._flush_timeline()
-        if self.cfg.use_tensorboard and not self._tb_disabled:
+        if (self.cfg.use_tensorboard and not self._tb_disabled
+                and self.is_main_process):
             self._tensorboard_scalars(row, epoch)
+        # Every rank keeps the bookkeeping (the ensemble reads it);
+        # process 0 writes the files.
         self.ckpt_writer.save(self.state, epoch, self.current_iter,
-                              val_stats["accuracy"])
+                              val_stats["accuracy"],
+                              write=self.is_main_process)
         self.jsonl.log("checkpoint", epoch=epoch, iter=self.current_iter,
                        bytes=self.ckpt_writer.last_save_bytes,
                        seconds=self.ckpt_writer.last_save_seconds)
@@ -867,7 +1032,9 @@ class ExperimentBuilder:
         installed) and ``logs/trace.json``, a Chrome trace of the ring and
         the tail of the run's events; both bounded windows, so the cost
         per epoch stays flat. Best-effort: a timeline never stops
-        training."""
+        training. Process 0 only."""
+        if not self.is_main_process:
+            return
         try:
             logs = self.paths["logs"]
             flight = None
@@ -878,7 +1045,8 @@ class ExperimentBuilder:
             events = (read_jsonl(self.jsonl.path, tail=4096)
                       if os.path.exists(self.jsonl.path) else None)
             trace_mod.write_trace(os.path.join(logs, "trace.json"),
-                                  events=events, flight=flight)
+                                  events=events, flight=flight,
+                                  process_index=self.mesh.rank)
         except (OSError, ValueError) as e:
             logging.getLogger(__name__).warning(
                 "timeline flush failed (%s: %s)", type(e).__name__, e)
@@ -913,8 +1081,10 @@ class ExperimentBuilder:
         per-episode accuracy; write ``test_summary.csv``."""
         cfg = self.cfg
         t0 = time.perf_counter()
-        # Every queued save is on disk before the members are read.
+        # Every queued save is on disk, then process 0's writes are
+        # ordered before every rank's reads.
         self.ckpt_writer.drain()
+        barrier("checkpoints_written")
         # Filter by presence: bookkeeping can outlive a file (a 'skip'
         # policy save, an external deletion).
         top = [e for e in self.ckpt.top_epochs(cfg.max_models_to_save)
@@ -927,8 +1097,10 @@ class ExperimentBuilder:
             per_model_logits.append(res["logits"])
             per_model_acc["current"] = res["accuracy"]
         for epoch in top:
-            res = self._evaluate(self._eval_batches("test"),
-                                 self._load_member(epoch),
+            member = self._load_member(epoch)
+            # Each member's bytes agree across ranks before it runs.
+            self._agree_checkpoint_fingerprint(epoch, "ensemble")
+            res = self._evaluate(self._eval_batches("test"), member,
                                  collect_logits=True)
             per_model_logits.append(res["logits"])
             per_model_acc[f"epoch_{epoch}"] = res["accuracy"]
@@ -942,7 +1114,9 @@ class ExperimentBuilder:
                             axis=0)  # (E, N*T)
             targets, n_left = [], cfg.num_evaluation_tasks
             for batch in self._eval_batches("test"):
-                y = batch.target_y.cpu().numpy()
+                # A rank holds its shard of each batch: gather them.
+                (y,) = self.mesh.all_gather([batch.target_y])
+                y = y.cpu().numpy()
                 take = min(n_left, y.shape[0])
                 targets.append(y[:take])
                 n_left -= take
@@ -969,13 +1143,14 @@ class ExperimentBuilder:
             result["test_mse_mean"] = -result["test_accuracy_mean"]
         # One packed column keeps the CSV schema stable as the member set
         # changes between re-runs.
-        save_statistics(
-            self.paths["logs"],
-            {**{k: v for k, v in result.items()
-                if k != "per_model_accuracy"},
-             "per_model_accuracy": "|".join(
-                 f"{k}:{v:.6f}" for k, v in per_model_acc.items())},
-            filename="test_summary.csv")
+        if self.is_main_process:
+            save_statistics(
+                self.paths["logs"],
+                {**{k: v for k, v in result.items()
+                    if k != "per_model_accuracy"},
+                 "per_model_accuracy": "|".join(
+                     f"{k}:{v:.6f}" for k, v in per_model_acc.items())},
+                filename="test_summary.csv")
         self.jsonl.log("test_protocol", **{
             k: v for k, v in result.items() if k != "per_model_accuracy"},
             per_model_accuracy=per_model_acc,

@@ -24,6 +24,12 @@ device.
 ``train_step(..., health=True)`` also returns the training-health
 diagnostics (``telemetry/health.py``) in ``StepMetrics.health``; the
 weights are bitwise those of a step without them.
+
+Over a mesh of ranks (``parallel/mesh.py``) each rank runs its shard of
+the batch: the train step all-reduces the meta-gradient, loss and aux
+once (``reduce_axes``), the eval step all-gathers the per-task results
+(``gather_axes``), and ``elastic_pad_tasks`` zero-weight pad tasks are
+masked exactly (:func:`_pad_scale`).
 """
 
 from __future__ import annotations
@@ -264,17 +270,46 @@ def _add(acc, value):
     return value if acc is None else tree_map(torch.add, acc, value)
 
 
-def _make_accumulation(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
+def _pad_scale(cfg: MAMLConfig, rank: int, n_local: int,
+               device) -> Optional[torch.Tensor]:
+    """Elastic pad-and-mask: the ``(n_local,)`` per-task scale of this
+    rank's shard, ``padded/real`` on real global positions and 0 on the
+    pads (the global TAIL; the batch axis is dcn-major over the ranks);
+    None without pads. Every per-task output is scaled before its mean,
+    so each mean over the padded tasks, and the all-reduce mean of those
+    means, equals the exact mean over the REAL tasks."""
+    if not cfg.elastic_pad_tasks:
+        return None
+    f32 = torch.float32
+    ratio = (torch.tensor(cfg.padded_batch_size, dtype=f32)
+             / torch.tensor(cfg.batch_size, dtype=f32))
+    positions = rank * n_local + torch.arange(n_local)
+    return torch.where(positions < cfg.batch_size, ratio,
+                       torch.zeros((), dtype=f32)).to(device)
+
+
+def _scaled(tree, scale: Optional[torch.Tensor]):
+    """Each leaf of a tree (or of each field of a ``TaskResult``) with a
+    leading task axis, times ``scale`` per task."""
+    if scale is None:
+        return tree
+
+    def mul(a):
+        return a * scale.reshape(scale.shape[:1] + (1,) * (a.ndim - 1))
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_map(mul, f) for f in tree))
+    return tree_map(mul, tree)
+
+
+def _make_accumulation(cfg: MAMLConfig, apply_fn,
+                       rank: int = 0) -> Callable[..., Any]:
     """The chunked forward/backward of :func:`make_meta_gradients`,
     returning its sums as a dict (``loss``, ``acc``, ``s_loss``, ``bn``,
     ``grads``; with ``per_step``, also the per-inner-step support and
-    target losses ``ps_s``, ``ps_t``, each the task mean)."""
+    target losses ``ps_s``, ``ps_t``, each the task mean). ``rank`` is
+    this rank's position on the mesh, which places its shard's pads."""
     num_steps = cfg.number_of_training_steps_per_iter
     interpolate = cfg.algo.outer == "interpolate"
-    if cfg.elastic_pad_tasks > 0:
-        raise NotImplementedError(
-            "elastic_pad_tasks > 0 (elastic pad-and-mask) is not ported "
-            "yet (ROADMAP.md, Queue 1: parallel/mesh slice)")
 
     def accumulate(state: MetaTrainState, batch: Episode, epoch, *,
                    second_order: bool, use_msl: bool, plain: bool = False,
@@ -284,6 +319,8 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
         msl_w = (per_step_loss_importance(cfg, epoch, device=device)
                  if use_msl else None)
         num_micro = cfg.effective_task_microbatches()
+        scale = _pad_scale(cfg, rank, batch.support_x.shape[0], device)
+        size = batch.support_x.shape[0] // num_micro
         if interpolate:
             trainable = {"params": state.params, "lslr": state.lslr}
         else:
@@ -292,13 +329,15 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
                 {"params": state.params, "lslr": state.lslr})
         leaves = tree_leaves(trainable)
         totals = None
-        for chunk in _chunks(batch, num_micro):
+        for c, chunk in enumerate(_chunks(batch, num_micro)):
+            s_c = None if scale is None else scale[c * size:(c + 1) * size]
             if interpolate:
                 with region("task_adapt"):
                     res, deltas = reptile_task_forward(
                         cfg, apply_fn, state.params, state.lslr,
                         state.bn_state, chunk, num_steps=num_steps,
                         plain=plain)
+                res, deltas = _scaled(res, s_c), _scaled(deltas, s_c)
                 _, slow = split_fast_slow(cfg, state.params)
                 grads = {
                     "params": {**tree_map(torch.zeros_like, slow),
@@ -312,6 +351,7 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
                         trainable["lslr"], state.bn_state, chunk,
                         num_steps=num_steps, second_order=second_order,
                         use_msl=use_msl, msl_weights=msl_w, plain=plain)
+                res = _scaled(res, s_c)
                 loss = res.loss.mean()
                 flat = torch.autograd.grad(loss, leaves, allow_unused=True)
                 it = iter(g if g is not None else torch.zeros_like(t)
@@ -333,7 +373,22 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
     return accumulate
 
 
-def make_meta_gradients(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
+def _mesh_mean(out: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """Local means -> global means: ONE fused all-reduce of the
+    meta-gradient, loss and aux (``mesh.all_reduce_mean``), where the JAX
+    package's ``pmean`` sits: after the microbatch accumulation, before
+    health, zeroing, clamp and Adam. Every rank then makes a bitwise
+    identical update, so the state stays replicated."""
+    keys = [k for k in ("loss", "acc", "s_loss", "bn", "grads", "ps_s",
+                        "ps_t") if k in out]
+    reduced = {k: out[k] for k in keys}
+    leaves = tree_leaves(reduced)
+    it = iter(mesh.all_reduce_mean(leaves))
+    return {**out, **tree_map(lambda _: next(it), reduced)}
+
+
+def make_meta_gradients(cfg: MAMLConfig, apply_fn, *,
+                        reduce_axes=None) -> Callable[..., Any]:
     """Build ``meta_gradients(state, batch, epoch, *, second_order,
     use_msl, plain=False) -> (loss, accuracy, support_loss, bn_state,
     grads)``: the batch's meta-loss and its gradient with respect to
@@ -346,14 +401,18 @@ def make_meta_gradients(cfg: MAMLConfig, apply_fn) -> Callable[..., Any]:
     ``bn_state`` is the task mean of the post-task norm states. Under
     ``meta_algorithm='reptile'`` (outer ``'interpolate'``) the gradient
     of each fast leaf is the task mean of ``θ − φ`` and every other leaf
-    gets zeros."""
-    accumulate = _make_accumulation(cfg, apply_fn)
+    gets zeros. ``reduce_axes`` (a ``parallel.mesh.Mesh``): the rank's
+    local batch, all-reduced to the global mean as the train step does."""
+    accumulate = _make_accumulation(
+        cfg, apply_fn, rank=reduce_axes.rank if reduce_axes else 0)
 
     def meta_gradients(state: MetaTrainState, batch: Episode, epoch, *,
                        second_order: bool, use_msl: bool,
                        plain: bool = False):
         out = accumulate(state, batch, epoch, second_order=second_order,
                          use_msl=use_msl, plain=plain)
+        if reduce_axes is not None:
+            out = _mesh_mean(out, reduce_axes)
         return out["loss"], out["acc"], out["s_loss"], out["bn"], out["grads"]
 
     return meta_gradients
@@ -369,12 +428,15 @@ def make_train_step(cfg: MAMLConfig, apply_fn, *,
     adds the training-health diagnostics: gradient norms of the
     meta-gradient before zeroing and clamp, update ratios and LSLR
     statistics of the updated state, per-step losses and the MSL
-    weights."""
-    if reduce_axes:
-        raise NotImplementedError(
-            "reduce_axes (the cross-device meta-gradient mean) is not "
-            "ported yet (ROADMAP.md, Queue 1: parallel/mesh slice)")
-    accumulate = _make_accumulation(cfg, apply_fn)
+    weights.
+
+    ``reduce_axes`` (a ``parallel.mesh.Mesh``): the batch is this rank's
+    shard of the global batch; after the microbatch accumulation ONE
+    fused all-reduce makes the meta-gradient, loss and aux global means
+    (:func:`_mesh_mean`), and with ``elastic_pad_tasks`` the rank's
+    position places its pads (:func:`_pad_scale`)."""
+    accumulate = _make_accumulation(
+        cfg, apply_fn, rank=reduce_axes.rank if reduce_axes else 0)
     schedule = meta_lr_schedule(cfg)
     learnable_lslr = cfg.effective_learnable_lslr
 
@@ -384,6 +446,8 @@ def make_train_step(cfg: MAMLConfig, apply_fn, *,
                    ) -> Tuple[MetaTrainState, StepMetrics]:
         out = accumulate(state, batch, epoch, second_order=second_order,
                          use_msl=use_msl, plain=plain, per_step=health)
+        if reduce_axes is not None:
+            out = _mesh_mean(out, reduce_axes)
         loss, acc, s_loss = out["loss"], out["acc"], out["s_loss"]
         new_bn, grads = out["bn"], out["grads"]
         diag = None
@@ -427,10 +491,15 @@ class EvalResult(NamedTuple):
     target_logits: torch.Tensor  # (B, N*Q, N)
 
 
-def make_eval_step(cfg: MAMLConfig, apply_fn) -> Callable[..., EvalResult]:
+def make_eval_step(cfg: MAMLConfig, apply_fn, *,
+                   gather_axes=None) -> Callable[..., EvalResult]:
     """Validation/test: adapt every task of the batch at once with the
     evaluation step count, first order, final-step loss only; no outer
-    graph is built and the norm-state changes are discarded."""
+    graph is built and the norm-state changes are discarded.
+
+    ``gather_axes`` (a ``parallel.mesh.Mesh``): the batch is this rank's
+    shard; ONE all-gather of the per-task results gives every rank the
+    whole eval batch's result."""
     num_steps = cfg.number_of_evaluation_steps_per_iter
 
     def eval_step(state: MetaTrainState, batch: Episode, *,
@@ -441,7 +510,9 @@ def make_eval_step(cfg: MAMLConfig, apply_fn) -> Callable[..., EvalResult]:
                                state.bn_state, batch, num_steps=num_steps,
                                second_order=False, use_msl=False,
                                msl_weights=None, plain=plain)
-        return EvalResult(loss=res.loss, accuracy=res.target_accuracy,
-                          target_logits=res.target_logits)
+        out = (res.loss, res.target_accuracy, res.target_logits)
+        if gather_axes is not None:
+            out = gather_axes.all_gather(out)
+        return EvalResult(*out)
 
     return eval_step

@@ -18,8 +18,8 @@ the ``ExperimentBuilder`` that owns the run's telemetry (the last
 installer wins: one live run per process). Counters are no-ops until a
 registry is installed.
 
-Not ported yet (ROADMAP.md, Queue 1: parallel/mesh slice): the pod fault
-domain (``resilience/cluster.py``, ``elastic.py``, exit 73).
+Not ported yet (ROADMAP.md, Queue 1: pod fault domain (item 8b)): the
+pod fault domain (``resilience/cluster.py``, ``elastic.py``, exit 73).
 """
 
 from __future__ import annotations

@@ -22,9 +22,10 @@ Two addressing modes, one per kind (the sites choose, not the spec):
 
 Every site lives in host-side Python between steps; with no plan
 installed :func:`maybe_fire` is one ``None`` check. ``hang_collective``
-and ``kill_peer`` need the parallel/mesh slice (a collective, a peer):
-a plan naming either raises ``NotImplementedError`` rather than parse and
-never fire.
+fires inside a host-level collective (``parallel/multihost.py §
+_collective``, call-counted). ``kill_peer`` needs the pod fault domain
+(ROADMAP.md, Queue 1: item 8b): a plan naming it raises
+``NotImplementedError`` rather than parse and never fire.
 """
 
 from __future__ import annotations
@@ -59,10 +60,9 @@ KINDS = (
                         # the surviving peers of a pod experience it
 )
 
-# Kinds whose site is a collective or a peer process: none exists on one
-# card until the parallel/mesh slice lands.
-UNPORTED_KINDS = {"hang_collective": "a multihost collective",
-                  "kill_peer": "a pod peer"}
+# Kinds whose site the port does not have yet: a pod peer's death is
+# the pod fault domain's to detect.
+UNPORTED_KINDS = {"kill_peer": "a pod peer"}
 
 # How long a hang_* fault sleeps (seconds): long enough to overrun any
 # sane watchdog deadline (the watchdog's os._exit ends it), but bounded,
@@ -138,7 +138,7 @@ class FaultPlan:
                 raise NotImplementedError(
                     f"fault kind {s.kind!r} needs {UNPORTED_KINDS[s.kind]}"
                     f", which the port does not have yet (ROADMAP.md, "
-                    f"Queue 1: parallel/mesh slice)")
+                    f"Queue 1: pod fault domain (item 8b))")
         self._calls: Dict[str, int] = {}
         self._lock = threading.Lock()
         self.fired: List[Tuple[str, int]] = []

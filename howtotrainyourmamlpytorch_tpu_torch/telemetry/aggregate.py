@@ -2,10 +2,10 @@
 copy of the JAX package's ``telemetry/aggregate.py``).
 
 * **In-run**: :func:`emit_heartbeat` logs one ``heartbeat`` row per
-  call, carrying :func:`host_step_skew`'s per-host step-time vector. The
-  port runs one process on one card, so the vector holds the local value
-  alone; a run of several processes waits for the parallel/mesh slice
-  (ROADMAP.md, Queue 1) and raises.
+  call, carrying :func:`host_step_skew`'s per-process step-time vector,
+  gathered over the process group (``parallel/multihost.py §
+  gather_host_floats``; the local value alone with one process). Every
+  rank calls it at the same point: it is a collective.
 * **Offline**: :func:`collect_fleet_events` merges ``events*.jsonl``
   files into one time-ordered timeline with each row stamped by its
   source file, and :func:`fleet_counter_totals` folds the interleaved
@@ -19,8 +19,6 @@ import glob
 import os
 from typing import Any, Dict, List, Optional
 
-import torch.distributed as dist
-
 from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import (
     read_jsonl_rotated)
 
@@ -29,14 +27,11 @@ METRICS_EVENT = "metrics"
 
 
 def _gather_host_floats(value: float) -> List[float]:
-    """The per-process vector of ``value``: this process's alone. A run
-    of several processes needs the mesh slice's gather."""
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "a per-host gather over several processes is not ported yet "
-            "(ROADMAP.md, Queue 1: parallel/mesh slice)")
-    return [float(value)]
+    """The per-process vector of ``value``, ordered by rank."""
+    # Imported here: parallel/ imports the step code, which imports
+    # this package.
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
+    return multihost.gather_host_floats(value)
 
 
 def host_step_skew(local_mean_step_seconds: float) -> Dict[str, Any]:

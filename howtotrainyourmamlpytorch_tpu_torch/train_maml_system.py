@@ -8,10 +8,19 @@ contract, on the card:
 
 Any config field can be overridden after the JSON is applied (dataclass
 defaults → JSON → CLI overrides), with the JAX package's parsing rules.
+``--device cpu`` runs on the CPU (the card by default).
 ``main`` provisions the dataset from a local zip if one is there (else the
 synthetic fallback applies), builds the experiment, runs it, and returns
 75 when the run was preempted (SIGTERM/SIGINT: 'latest' is saved; resume
 with ``--continue_from_epoch latest``).
+
+Launched by torchrun, every rank joins the process group before the
+builder (``parallel.multihost.initialize_distributed``) and trains its
+shard of the (dcn, tasks) mesh:
+
+    torchrun --nproc_per_node 2 -m \\
+        howtotrainyourmamlpytorch_tpu_torch.train_maml_system \\
+        --name_of_args_json_file <json> --mesh_shape 1 2
 """
 
 from __future__ import annotations
@@ -22,9 +31,12 @@ import json
 import sys
 from typing import List, Optional
 
+import torch.distributed
+
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.device import DeviceLike
 from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentBuilder
+from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
 from howtotrainyourmamlpytorch_tpu_torch.resilience import EXIT_PREEMPTED
 from howtotrainyourmamlpytorch_tpu_torch.utils.dataset_tools import (
     maybe_unzip_dataset)
@@ -106,17 +118,31 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None,
          builders: Optional[list] = None) -> int:
     """Run the CLI on ``device`` (the card by default). ``builders``, when
     given, receives the ``ExperimentBuilder`` that ran, for callers that
-    inspect the run afterwards."""
+    inspect the run afterwards. ``--device <d>`` in ``argv`` picks the
+    device when ``device`` is None. A process group this call joins is
+    left again at its end."""
+    pre = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    pre.add_argument("--device", default=None)
+    known, argv = pre.parse_known_args(
+        sys.argv[1:] if argv is None else argv)
+    device = device if device is not None else known.device
     cfg = get_args(argv)
-    print(f"experiment: {cfg.experiment_name} | dataset: "
-          f"{cfg.dataset_name} | {cfg.num_classes_per_set}-way "
-          f"{cfg.num_samples_per_class}-shot | device "
-          f"{device if device is not None else 'cuda'}", flush=True)
-    maybe_unzip_dataset(cfg)  # synthetic fallback if absent
-    builder = ExperimentBuilder(cfg, device=device)
-    if builders is not None:
-        builders.append(builder)
-    result = builder.run_experiment()
+    # Before the builder: a torchrun rank joins the process group first.
+    joins = not multihost.is_initialized()
+    multihost.initialize_distributed(device)
+    try:
+        print(f"experiment: {cfg.experiment_name} | dataset: "
+              f"{cfg.dataset_name} | {cfg.num_classes_per_set}-way "
+              f"{cfg.num_samples_per_class}-shot | device "
+              f"{device if device is not None else 'cuda'}", flush=True)
+        maybe_unzip_dataset(cfg)  # synthetic fallback if absent
+        builder = ExperimentBuilder(cfg, device=device)
+        if builders is not None:
+            builders.append(builder)
+        result = builder.run_experiment()
+    finally:
+        if joins and multihost.is_initialized():
+            torch.distributed.destroy_process_group()
     if isinstance(result, dict) and "preempted_at_iter" in result:
         return EXIT_PREEMPTED
     return 0

@@ -266,20 +266,28 @@ class CheckpointManager:
         save_to_json(self._meta_path, meta)
 
     def save(self, state: MetaTrainState, epoch: int, current_iter: int,
-             val_acc: float) -> int:
+             val_acc: float, write: bool = True) -> int:
         """Write the epoch checkpoint + latest, update bookkeeping, prune
         checkpoints outside the top ``max_to_keep`` by val accuracy.
-        Returns the file's size in bytes."""
-        data = self.encode(state)
+        Returns the file's size in bytes. ``write=False`` (a process other
+        than 0) updates only the bookkeeping, which every process needs
+        for the ensemble, and returns 0: one process writes the files."""
+        data = self.encode(state) if write else None
         self.record_save(epoch, current_iter, val_acc)
+        if data is None:
+            return 0
         self.write_epoch_files(data, epoch, current_iter, val_acc)
         return len(data)
 
-    def save_latest(self, state: MetaTrainState, current_iter: int) -> None:
+    def save_latest(self, state: MetaTrainState, current_iter: int,
+                    write: bool = True) -> None:
         """Write ONLY ``train_model_latest`` + iteration bookkeeping — the
         preemption path. No epoch entry is registered: a mid-epoch
-        snapshot must not enter the top-k ensemble set."""
+        snapshot must not enter the top-k ensemble set. ``write=False``
+        updates the bookkeeping only."""
         self.meta["current_iter"] = int(current_iter)
+        if not write:
+            return
         data = self.encode(state)
         self.manifest.begin(LATEST, iteration=int(current_iter))
         self._atomic_write(self.path(LATEST), data)
@@ -417,10 +425,11 @@ class CheckpointManager:
         raise RuntimeError("no readable checkpoint: " + "; ".join(
             f"{tag}: {err}" for tag, err in failures))
 
-    def rewind_to(self, epoch: int) -> None:
+    def rewind_to(self, epoch: int, write: bool = True) -> None:
         """Discard bookkeeping newer than ``epoch`` (a resume from an
         epoch, or a divergence rewind): later epochs' val accuracies must
-        not feed the top-k ensemble once retraining overwrites them."""
+        not feed the top-k ensemble once retraining overwrites them.
+        ``write=False`` leaves ``state.json`` to process 0."""
         epoch = int(epoch)
         if str(epoch) not in self.meta["iter_at_epoch"]:
             raise KeyError(f"no bookkeeping for epoch {epoch}")
@@ -430,7 +439,8 @@ class CheckpointManager:
         self.meta["current_iter"] = self.meta["iter_at_epoch"][str(epoch)]
         self.meta["current_epoch"] = epoch
         self._recompute_best()
-        save_to_json(self._meta_path, self.meta)
+        if write:
+            save_to_json(self._meta_path, self.meta)
 
     def _recompute_best(self) -> None:
         kept = self.meta["val_acc_per_epoch"]

@@ -24,12 +24,17 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 class JsonlLogger:
     """Append-only JSONL event log; ``max_bytes > 0`` rotates the live
-    file to ``path.1`` (one spare) once a write pushes it past the cap."""
+    file to ``path.1`` (one spare) once a write pushes it past the cap.
+    ``enabled=False`` (a process other than 0) keeps the logger callable
+    but writes nothing."""
 
-    def __init__(self, path: str, max_bytes: int = 0):
+    def __init__(self, path: str, max_bytes: int = 0,
+                 enabled: bool = True):
         self.path = path
         self.max_bytes = int(max_bytes)
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     @staticmethod
     def _coerce(value: Any) -> Any:
@@ -54,6 +59,8 @@ class JsonlLogger:
     def log(self, event: str, **payload: Any) -> Dict[str, Any]:
         row = {"ts": time.time(), "event": event,
                **{k: self._coerce(v) for k, v in payload.items()}}
+        if not self.enabled:
+            return row
         with open(self.path, "a") as f:
             f.write(json.dumps(row) + "\n")
             size = f.tell()
@@ -129,7 +136,8 @@ class StepTimer:
         """Per-step intervals (a copy), for registry histograms."""
         return list(self._durations)
 
-    def summary(self, tasks_per_step: int) -> Dict[str, float]:
+    def summary(self, tasks_per_step: int,
+                n_devices: int = 1) -> Dict[str, float]:
         if not self._durations:
             return {}
         d = sorted(self._durations)
@@ -140,7 +148,8 @@ class StepTimer:
             "p50_step_seconds": nearest_rank(d, 0.5),
             "p95_step_seconds": nearest_rank(d, 0.95),
             "meta_tasks_per_sec": tasks_per_step * n / total,
-            "meta_tasks_per_sec_per_chip": tasks_per_step * n / total,
+            "meta_tasks_per_sec_per_chip": (tasks_per_step * n / total
+                                            / n_devices),
         }
 
 

@@ -92,8 +92,8 @@ HANG_DEADLINES = dict(watchdog_feed_timeout_s=6.0,
 # finishes and the artifact shows the wrong exit code.
 HANG_SECONDS = "120"
 SKIPPED = {
-    "peer_kill": "needs several processes over a device mesh: the pod "
-                 "fault domain (ROADMAP.md, Queue 1: parallel/mesh slice)",
+    "peer_kill": "needs the pod fault domain to detect a dead peer "
+                 "(ROADMAP.md, Queue 1: pod fault domain (item 8b))",
     "warm_restart": "eager PyTorch compiles nothing, so a restart has no "
                     "executables to load (ROADMAP.md, Queue 1: "
                     "AOT/compile-cache slice)",

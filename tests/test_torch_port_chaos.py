@@ -52,7 +52,7 @@ def test_quick_chaos_run_recovers(chaos):
     skipped = [json.loads(line) for line in lines
                if '"status": "skipped"' in line]
     assert {s["phase"] for s in skipped} == {"peer_kill", "warm_restart"}
-    assert "parallel/mesh slice" in art["peer_kill_skipped"]
+    assert "item 8b" in art["peer_kill_skipped"]
     assert "AOT/compile-cache slice" in art["warm_restart_skipped"]
 
 

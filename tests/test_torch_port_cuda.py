@@ -500,10 +500,10 @@ def test_cli_f32_config_convolves_without_tf32(cuda_device, tmp_path,
     to 10 mantissa bits, ~1e-3). Torch's flags come back after the run."""
     import json
     import torch.nn.functional as F
-    from howtotrainyourmamlpytorch_tpu_torch import (experiment,
-                                                     train_maml_system)
+    from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import mesh as mesh_mod
     seen = []
-    make = experiment.make_train_step
+    make = mesh_mod.make_train_step
 
     def spy(cfg, apply_fn, **kw):
         step = make(cfg, apply_fn, **kw)
@@ -521,7 +521,7 @@ def test_cli_f32_config_convolves_without_tf32(cuda_device, tmp_path,
             return step(*args, **kwargs)
         return wrapped
 
-    monkeypatch.setattr(experiment, "make_train_step", spy)
+    monkeypatch.setattr(mesh_mod, "make_train_step", spy)
     path = tmp_path / "f32.json"
     path.write_text(json.dumps(dict(
         experiment_name="f32", dataset_name="synthetic", image_height=12,
@@ -568,10 +568,11 @@ SPIN_CHILD = """
 import sys
 import torch
 sys.path.insert(0, sys.argv[1])
-from howtotrainyourmamlpytorch_tpu_torch import experiment, train_maml_system
-real = experiment.make_train_step
-def make(cfg, apply):
-    step, calls = real(cfg, apply), []
+from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
+from howtotrainyourmamlpytorch_tpu_torch.parallel import mesh
+real = mesh.make_train_step
+def make(cfg, apply, **kw):
+    step, calls = real(cfg, apply, **kw), []
     def spun(*args, **kwargs):
         out = step(*args, **kwargs)
         calls.append(1)
@@ -579,7 +580,7 @@ def make(cfg, apply):
             torch.cuda._sleep(2 * 10**10)
         return out
     return spun
-experiment.make_train_step = make
+mesh.make_train_step = make
 sys.exit(train_maml_system.main(["--name_of_args_json_file", sys.argv[2]]))
 """
 

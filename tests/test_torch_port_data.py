@@ -278,6 +278,14 @@ def test_loader_device_selection():
         MetaLearningDataLoader(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MetaLearningDataLoader(cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MetaLearningDataLoader(cfg.replace(elastic_pad_tasks=4),
-                               device="cpu")
+    # The elastic pad is ported: the train batch gains a zero tail, and
+    # its real tasks are the unpadded stream's.
+    padded = cfg.replace(elastic_pad_tasks=4)
+    got = next(iter(MetaLearningDataLoader(padded, device="cpu")
+                    .get_train_batches(0, 1)))
+    want = next(iter(MetaLearningDataLoader(cfg, device="cpu")
+                     .get_train_batches(0, 1)))
+    b = cfg.batch_size
+    for g, w in zip(got, want):
+        assert g.shape[0] == b + 4 and g.dtype == w.dtype
+        assert torch.equal(g[:b], w) and not g[b:].any()

@@ -42,6 +42,7 @@ from howtotrainyourmamlpytorch_tpu_torch import train_maml_system as cli
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.convert import params_to_jax
 from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentBuilder
+from howtotrainyourmamlpytorch_tpu_torch.parallel import mesh as mesh_mod
 from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
     load_statistics)
 from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
@@ -242,11 +243,11 @@ def test_resume_from_an_epoch_rewinds_and_retrains(runs, tmp_path):
 def _sigterm_on_call(monkeypatch, n):
     """Make the builder's train step raise SIGTERM during its ``n``-th
     call (the real signal path: handler → flag → snapshot)."""
-    real = experiment.make_train_step
+    real = mesh_mod.make_train_step
     calls = {"n": 0}
 
-    def make(cfg, apply):
-        step = real(cfg, apply)
+    def make(cfg, apply, **kw):
+        step = real(cfg, apply, **kw)
 
         def wrapped(*a, **k):
             calls["n"] += 1
@@ -254,7 +255,7 @@ def _sigterm_on_call(monkeypatch, n):
                 signal.raise_signal(signal.SIGTERM)
             return step(*a, **k)
         return wrapped
-    monkeypatch.setattr(experiment, "make_train_step", make)
+    monkeypatch.setattr(mesh_mod, "make_train_step", make)
 
 
 def _json_config(tmp_path, **kw):
@@ -410,13 +411,23 @@ def test_get_args_rejects_what_jax_rejects(argv):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh_shape=(1, 2)), dict(aot_store_dir="store"),
+    dict(mesh_shape=(1, 2), require_mesh=1), dict(aot_store_dir="store"),
     dict(compilation_cache_dir="cache"),
     dict(cluster_collective_timeout_s=5.0),
     dict(cluster_collective_timeout_s=5.0, elastic_mode=1)],
     ids=lambda k: next(iter(k)))
 def test_unported_knob_raises(knob, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Knobs of unported slices raise naming their ROADMAP item (the pod
+    fault domain's name item 8b). The mesh is ported: a mesh_shape that
+    one process cannot realize raises under require_mesh=1, with the JAX
+    package's message."""
+    if "mesh_shape" in knob:
+        err, match = ValueError, "only 1 are visible and require_mesh=1"
+    elif "cluster_collective_timeout_s" in knob:
+        err, match = NotImplementedError, "ROADMAP.*item 8b"
+    else:
+        err, match = NotImplementedError, "ROADMAP"
+    with pytest.raises(err, match=match):
         ExperimentBuilder(MAMLConfig(**_kw(tmp_path, **knob)), device="cpu")
 
 

@@ -46,6 +46,7 @@ from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.convert import (params_to_jax,
                                                          state_from_jax)
 from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentBuilder
+from howtotrainyourmamlpytorch_tpu_torch.parallel import mesh as mesh_mod
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import init_train_state
 from howtotrainyourmamlpytorch_tpu_torch.models import make_model
 from howtotrainyourmamlpytorch_tpu_torch.resilience import flightrec, watchdog
@@ -268,11 +269,11 @@ def test_hang_trips_the_watchdog(kind, phase, tmp_path):
 
 
 def test_unhandled_exception_writes_a_bundle(tmp_path, monkeypatch):
-    real = experiment.make_train_step
+    real = mesh_mod.make_train_step
     calls = []
 
-    def make(cfg, apply):
-        step = real(cfg, apply)
+    def make(cfg, apply, **kw):
+        step = real(cfg, apply, **kw)
 
         def failing(*a, **k):
             calls.append(1)
@@ -280,7 +281,7 @@ def test_unhandled_exception_writes_a_bundle(tmp_path, monkeypatch):
                 raise RuntimeError("injected step failure")
             return step(*a, **k)
         return failing
-    monkeypatch.setattr(experiment, "make_train_step", make)
+    monkeypatch.setattr(mesh_mod, "make_train_step", make)
     builder = ExperimentBuilder(_cfg(tmp_path), device="cpu")
     before = (watchdog.get_beacon(), flightrec.get())
     with pytest.raises(RuntimeError, match="injected"):
@@ -307,10 +308,10 @@ def test_second_signal_writes_a_bundle_then_exits_75(tmp_path,
         codes.append(code)
         raise _Exited(code)
     monkeypatch.setattr(experiment.os, "_exit", fake_exit)
-    real = experiment.make_train_step
+    real = mesh_mod.make_train_step
 
-    def make(cfg, apply):
-        step = real(cfg, apply)
+    def make(cfg, apply, **kw):
+        step = real(cfg, apply, **kw)
 
         def signalled(*a, **k):
             out = step(*a, **k)
@@ -319,7 +320,7 @@ def test_second_signal_writes_a_bundle_then_exits_75(tmp_path,
                 signal.raise_signal(signal.SIGTERM)
             return out
         return signalled
-    monkeypatch.setattr(experiment, "make_train_step", make)
+    monkeypatch.setattr(mesh_mod, "make_train_step", make)
     builder = ExperimentBuilder(_cfg(tmp_path), device="cpu")
     with pytest.raises(_Exited):
         builder.run_experiment()

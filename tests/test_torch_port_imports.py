@@ -40,9 +40,9 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
 PORT_SCRIPTS = ("torch_chaos_fleet", "torch_chaos_run", "torch_dataset_pack",
-                "torch_fleet_bench", "torch_ops_console",
-                "torch_serve_bench", "torch_serve_profile",
-                "torch_slo_report", "torch_telemetry_report",
+                "torch_fleet_bench", "torch_generate_scripts",
+                "torch_ops_console", "torch_serve_bench",
+                "torch_serve_profile", "torch_slo_report", "torch_telemetry_report",
                 "torch_trace_export", "torch_traffic_replay")
 # A dotted JAX-package module name (or the bare package name), and the
 # aliases of the JAX package's file-path loaders.
@@ -146,6 +146,9 @@ def test_every_port_module_imports_with_jax_blocked():
     assert len(mods) >= 30
     assert {f"howtotrainyourmamlpytorch_tpu_torch.resilience.{m}"
             for m in ("faults", "flightrec", "watchdog")} <= mods
+    assert {f"howtotrainyourmamlpytorch_tpu_torch.{m}" for m in (
+        "parallel", "parallel.mesh", "parallel.multihost",
+        "utils.script_gen")} <= mods
     assert {f"howtotrainyourmamlpytorch_tpu_torch.{m}" for m in (
         "telemetry.reqtrace", "serve.fleet.l2cache", "serve.fleet.router",
         "serve.fleet.controller", "serve.fleet.supervisor",

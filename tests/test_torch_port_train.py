@@ -682,13 +682,32 @@ def test_algorithm_gates_match_jax(algo):
 
 @pytest.mark.parametrize("knob", [dict(elastic_pad_tasks=2), "reduce_axes"])
 def test_deferred_knobs_raise(knob):
-    cfg, apply, st = _port_only(**(knob if isinstance(knob, dict) else {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step = outer.make_train_step(
-            cfg, apply, **({"reduce_axes": ("tasks",)}
-                           if knob == "reduce_axes" else {}))
-        step(st, _torch_batch(_batch(cfg, 9)), 0, second_order=True,
-             use_msl=True)
+    """The mesh slice's knobs, once deferred, now run: two zero pad tasks
+    after the real ones leave the step's loss and weights those of the
+    real tasks alone (pad-and-mask), and ``reduce_axes`` over a one-rank
+    mesh without a process group is bitwise the plain step
+    (tests/test_torch_port_mesh.py holds both against JAX)."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import make_mesh
+    kw = knob if isinstance(knob, dict) else {}
+    cfg, apply, st = _port_only(**kw)
+    real = _torch_batch(_batch(cfg, 9))
+    if kw:
+        batch = inner.Episode(*(torch.cat([f, torch.zeros(
+            (2,) + f.shape[1:], dtype=f.dtype)]) for f in real))
+        plain_cfg = cfg.replace(elastic_pad_tasks=0)
+        step = outer.make_train_step(cfg, apply)
+    else:
+        batch, plain_cfg = real, cfg
+        step = outer.make_train_step(cfg, apply,
+                                     reduce_axes=make_mesh(cfg))
+    new, m = step(st, batch, 0, second_order=True, use_msl=True)
+    want, wm = outer.make_train_step(plain_cfg, apply)(
+        st, real, 0, second_order=True, use_msl=True)
+    tol = {} if kw else dict(rtol=0, atol=0)
+    torch.testing.assert_close(m.loss, wm.loss, **tol)
+    for a, b in zip(tree_leaves(new.params), tree_leaves(want.params)):
+        torch.testing.assert_close(a, b, **(tol or dict(rtol=1e-4,
+                                                         atol=1e-6)))
 
 
 @pytest.mark.parametrize("knob", [

@@ -10,9 +10,10 @@ package's, on the same inputs, on the CPU.
 * The flight ring's order and bound, the crash bundle's file names and
   ``crash.json`` keys, and the bundle's ``trace.json`` (byte-equal to
   the JAX package's for the same ring): equal.
-* A real-thread trip with ``on_trip``; ``hang_collective`` and
-  ``kill_peer`` raise ``NotImplementedError`` naming the parallel/mesh
-  slice; the kernel's first-use ``nvcc`` build runs under ``compile``,
+* A real-thread trip with ``on_trip``; ``kill_peer`` raises
+  ``NotImplementedError`` naming the pod fault domain (item 8b), and
+  ``hang_collective`` fires inside a host-level collective; the
+  kernel's first-use ``nvcc`` build runs under ``compile``,
   so a build longer than a tight step deadline does not trip.
 
 Exact equality throughout: these are integer and string decisions.
@@ -83,18 +84,38 @@ def test_bad_specs_are_rejected_like_jax(spec):
 
 
 @pytest.mark.parametrize("kind", ["hang_collective", "kill_peer"])
-def test_unported_kinds_raise_naming_the_mesh_slice(kind, tmp_path):
-    """A plan naming a kind with no site on one card raises instead of
-    parsing and never firing; the config still validates it, as the JAX
-    package's does, and the builder refuses it."""
+def test_unported_kinds_raise_naming_the_mesh_slice(kind, tmp_path,
+                                                    monkeypatch):
+    """``kill_peer`` has no site without the pod fault domain: a plan
+    naming it raises instead of parsing and never firing, naming item
+    8b; the config still validates it, as the JAX package's does, and the
+    builder refuses it. ``hang_collective`` is ported with the mesh: it
+    parses and fires inside a host-level collective, call-counted, under
+    the ``collective`` watchdog phase."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
     spec = f"io_write@1;{kind}@3"
     assert MAMLConfig(fault_spec=spec).fault_spec == spec
-    with pytest.raises(NotImplementedError, match="parallel/mesh slice"):
+    if kind == "hang_collective":
+        phases = []
+        monkeypatch.setattr(faults, "hang", lambda seconds=None:
+                            phases.append(watchdog.get_beacon().current()[0]))
+        beacon = watchdog.ProgressBeacon()
+        prev = watchdog.install_beacon(beacon)
+        try:
+            faults.configure(spec)
+            for _ in range(4):
+                assert multihost.any_process_true(False) is False
+        finally:
+            watchdog.install_beacon(prev)
+            faults.configure("")
+        assert phases == ["collective"]
+        return
+    with pytest.raises(NotImplementedError, match="item 8b"):
         faults.FaultPlan.parse(spec)
-    with pytest.raises(NotImplementedError, match="parallel/mesh slice"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         faults.configure(spec)
     assert faults.get_plan() is None
-    with pytest.raises(NotImplementedError, match="parallel/mesh slice"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         ExperimentBuilder(MAMLConfig(experiment_root=str(tmp_path),
                                      fault_spec=spec), device="cpu")
 
