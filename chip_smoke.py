@@ -100,10 +100,9 @@ failure:
    5's (a run whose sampled window lacks only a label its step runs,
    every other check of the row met, is printed and taken again, at
    most twice). Then
-   what health and a sample window add to a step, what the
-   profiler labels cost with the profiler off, and the port's sampler
-   beside this script's own profile of one step (phases 4 and 6 print
-   the same pair for their profiled steps).
+   what health and a sample window add to a step and what the
+   profiler labels cost with the profiler off (the port's sampler beside
+   this script's own profile of one step is phase 4's and phase 6's).
 8. The trainer's fault path at the flagship's full width (``fault_path``):
    ``scripts/torch_chaos_run.py``'s phases in process on the card (its
    verdict must be ``recovered``; the ckpt_kill and hang restarts resume
@@ -171,7 +170,8 @@ failure:
    operating point and "phase 11 seconds per part".
 
 12. The mesh (``mesh_path``), each leg in subprocesses with a time limit
-   (a rank that fails, hangs or cannot join its group fails the phase):
+   (a rank that fails, hangs or cannot join its group fails the phase;
+   (a)'s and (c)'s ranks run beside (b)'s witness ranks, for run time):
    (a) a one-rank NCCL group running a flagship second-order step
    (twice: the second timed warm) at full width through
    ``make_sharded_steps`` (12 one-task microbatches, f32, deterministic
@@ -195,7 +195,32 @@ failure:
    8 microbatches), one second-order MSL step per rank through the
    train step the builder's loop calls: losses equal across ranks and
    finite, launches as
-   derived, the cuts printed on one line.
+   derived, the cuts printed on one line; the pod JSON's own cluster
+   knobs (600 s budget) stay on, as in phase 6.
+13. The pod fault domain (``pod_fault_domain``), through
+   ``scripts/torch_chaos_pod.py`` (gloo ranks sharing the card, started
+   by the harness, on the flagship JSON with phase 5's length cuts and
+   ``POD_ARGS``: a 20 s cluster budget and 1 s leases, cut for run time;
+   each leg's ranks in a 300 s limit; legs (a)-(b) and (c) in two
+   harness processes side by side and (d) in this process beside them,
+   for run time): (a) 2 ranks, ``kill_peer`` on
+   host 1 mid-epoch 1: rank 0 exits 73 within the budget + 60 s, its
+   ``peer_lost`` row and crash bundle name host 1, ``metrics.prom``
+   counts 1 peer loss, its launches as derived to the kill (the victim's
+   count is unreadable); (b) both restart: the committed epoch file's CRC
+   pinned, both resume at its iteration and finish; then rank 1 reads
+   the run through a ``MANIFEST.json`` one epoch stale: both log the
+   consensus, resume from the older epoch and end on the same final
+   checkpoint bytes; (c) 3 ranks with ``elastic_mode 1``, ``kill_peer``
+   on host 0 (the writer and the store's host): hosts 1 and 2 agree on
+   generation 1, restart in place as ranks 0 and 1 of 2 and finish (exit
+   0, one reshard); a cold 2-rank run at the survivor geometry from a
+   snapshot of the committed state ends bitwise the survivors' final
+   checkpoint; every process's launches as derived for its generation;
+   (d) phase 5's CLI run on one rank with the domain armed (``POD_ARMED``)
+   ends bitwise phase 5's final state with the same launches, its lease
+   and heartbeat lease ages written. Prints the trip latency, the reshard
+   wall, the consensus-resume wall and each rank's step ms.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -280,7 +305,7 @@ R12_MSL_SHAPES = [(SHOTS * hw * hw, MSL_STEPS * c) for hw, c in R12_BLOCKS]
 # one per chunk) and cut the run's length; the BN-kernel launches that
 # run makes (derived in _train_path_launches).
 R12_CLI_ARGS = ["--bn_backend", "pallas", "--mesh_shape", "1", "1",
-                "--require_mesh", "0", "--cluster_collective_timeout_s", "0",
+                "--require_mesh", "0",
                 "--batch_size", "8", "--task_microbatches", "8",
                 "--total_epochs", "1", "--total_iter_per_epoch", "3",
                 "--num_evaluation_tasks", "32", "--max_models_to_save", "1"]
@@ -350,21 +375,40 @@ DEVICE_WINDOWS = 8
 RETAKE_PAUSE_S = 0.5
 
 
+def _complete_window(names, iters: int) -> bool:
+    """Whether a window's kernel records can be those of ``iters`` whole
+    calls: the calls run the same kernels, so the count is a multiple of
+    ``iters`` and the names in start order repeat with the call's
+    period. A window the tracer dropped records from breaks the count or
+    the period unless whole calls' worth went (the caller holds the count
+    to a complete window's for that), whether or not it also lost the
+    launch records."""
+    n = len(names)
+    if n == 0 or n % iters:
+        return False
+    k = n // iters
+    return all(names[i] == names[i % k] for i in range(n))
+
+
 def _device_ms(fn, iters: int = 20, attempts: int = DEVICE_WINDOWS,
                label: str = "device time", retakes: list = None,
-               required: bool = True):
+               required: bool = True, per_call: int = None):
     """Device time of one call: the profiler's kernel durations summed over
     ``iters`` calls, per call, and the device kernels per call. The window
     has the port sampler's guards (``telemetry/profiler.py``): ~50 ms of
     tiny kernels open the session before the window (the tracer drops
     device records early in a session), the calls run inside a
     ``WINDOW_MARKER`` range, and a ``WINDOW_TAIL`` sentinel kernel closes
-    it (a dropped tail shows as its missing record). A window whose
-    records fall short (records lost, or a kernel count that is not a
-    multiple of ``iters``) is printed, appended to ``retakes`` and taken
-    again after a pause that grows with each retake, up to ``attempts``
-    windows: the tracer drops kernel records at random, whole windows
-    included, and at times in runs of several (PERF.md § 7). When every
+    it (a dropped tail shows as its missing record). A window is held
+    to the record count of a complete one (:func:`_complete_window`):
+    ``per_call``, the call's kernel count, where it is known; else the
+    count of the first window whole by that rule, which the next window
+    must then hold (records are only ever dropped, so two windows at one
+    count are whole). A window that falls short, or that lost launch
+    records, is printed, appended to ``retakes`` and taken again after a
+    pause that grows with each retake, up to ``attempts`` windows: the
+    tracer drops kernel records at random, whole windows included, and at
+    times in runs of several (PERF.md § 7). When every
     window falls short it raises, or returns (None, None) where the
     reading is not ``required``."""
     import torch
@@ -374,6 +418,7 @@ def _device_ms(fn, iters: int = 20, attempts: int = DEVICE_WINDOWS,
     fn()
     torch.cuda.synchronize()
     sentinel = torch.zeros(1, device="cuda")
+    ref = per_call  # the kernels per call of a complete window
     for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -394,17 +439,31 @@ def _device_ms(fn, iters: int = 20, attempts: int = DEVICE_WINDOWS,
         # has no linked host record), by its start: the warm-up's
         # kernels ended before the window opened.
         kernels = [(name, (end - start) / 1e6)
-                   for name, start, end, launch in win.records
+                   for name, start, end, launch in sorted(
+                       win.records, key=lambda r: r[1])
                    if lo <= (start if launch is None else launch) <= hi]
-        if kernels and len(kernels) % iters == 0 and not win.lost:
+        names = [n for n, _ in kernels]
+        whole = _complete_window(names, iters) and not win.lost
+        if whole and len(names) == (ref or 0) * iters:
             return (sum(ms for _, ms in kernels) / iters,
                     len(kernels) / iters)
+        if whole and per_call is None and len(names) > (ref or 0) * iters:
+            # The call's kernel count is not known: the fullest window so
+            # far sets it, and the next window must hold as many.
+            ref = len(names) // iters
+            print(f"{label}: window {attempt + 1} holds {len(names)} "
+                  f"kernel records ({ref} per call); the next window must "
+                  f"hold as many", flush=True)
+            continue
         if retakes is not None:
             retakes.append({"label": label, "window": attempt + 1,
                             "records": len(kernels), "lost": win.lost})
         print(f"{label}: window {attempt + 1} of {attempts} holds "
-              f"{len(kernels)} kernel records over {iters} calls, "
-              f"{win.lost} launches lost (tracer-dropped device records)"
+              f"{len(kernels)} kernel records over {iters} calls (a "
+              f"complete window: {iters} x "
+              f"{ref if ref is not None else 'the call'}'s "
+              f"kernels, repeating per call), {win.lost} launches lost "
+              f"(tracer-dropped device records)"
               f"{'; taken again' if attempt + 1 < attempts else ''}",
               flush=True)
         if attempt + 1 < attempts:
@@ -646,7 +705,7 @@ def check_bn_act(device_name: str, card: str) -> dict:
             lib_ms = _median_ms(library)
             dev_ms, per_call = _device_ms(
                 kernel, label=f"bn_act {r}x{p} device time",
-                retakes=retakes)
+                retakes=retakes, per_call=1)
             lib_dev_ms, lib_per_call = _device_ms(
                 library, label=f"library {r}x{p} device time",
                 retakes=retakes, required=False)
@@ -942,19 +1001,18 @@ def _profiled(label: str, fn, card: str) -> dict:
             "by_family": by_family}
 
 
-def _deterministic_cost(label: str, fn, card: str,
-                        turns=("on", "off")) -> None:
+def _deterministic_cost(label: str, fn, card: str) -> None:
     """Wall time of ``fn`` (synchronized) with cuDNN's deterministic
-    algorithms on and off, in ``turns`` after one warm-up call of each,
-    ``cudnn.benchmark`` off throughout (the trainer's policy against
-    torch's default); printed."""
+    algorithms on and off, one call of each in turns after one warm-up
+    call of each, ``cudnn.benchmark`` off throughout (the trainer's
+    policy against torch's default); printed."""
     import torch
     cudnn = torch.backends.cudnn
     saved = (cudnn.deterministic, cudnn.benchmark)
     ms = {"off": [], "on": []}
     try:
         cudnn.benchmark = False
-        for turn in ("off", "on") + tuple(turns):
+        for turn in ("off", "on", "on", "off"):
             cudnn.deterministic = turn == "on"
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1307,10 +1365,10 @@ def train_flagship(entry: dict, card: str) -> None:
              bn_kernels=micro * s * _forwards_per_chunk(cfg, True, False))
     _deterministic_cost("train, one second-order step",
                         lambda: train_step(state, spare, 41, **so_step),
-                        card, turns=("off", "on", "on", "off"))
+                        card)
 
     # Remat: one second-order step, timed and its peak memory, per
-    # variant, in turns, its launches held to the derived count; then
+    # variant, its launches held to the derived count; then
     # each variant's f32 meta-gradient against 'block_outs' under the
     # trainer's numerics policy (deterministic cuDNN).
     launches, missed = _remat_variants("flagship", cfg, apply, state,
@@ -1344,8 +1402,8 @@ CHECKPOINT_SEGMENT_STEP = {"nothing": (2456.0, 0.52),
 
 def _remat_variants(label: str, cfg, apply, state, batch, epoch, phase,
                     card: str, floors):
-    """One train step per remat variant (``REMAT_VARIANTS``), timed in
-    turns with its peak memory, each launching the BN kernel as
+    """One train step per remat variant (``REMAT_VARIANTS``), timed once
+    each with its peak memory, each launching the BN kernel as
     :func:`_forwards_per_chunk` derives; then every variant's f32
     meta-gradient against 'block_outs' under the trainer's numerics
     policy (TF32 off, deterministic cuDNN): bitwise equal is expected,
@@ -1368,7 +1426,7 @@ def _remat_variants(label: str, cfg, apply, state, batch, epoch, phase,
             for n in REMAT_VARIANTS}
     found = {n: ([], []) for n in REMAT_VARIANTS}
     launches, failures = 0, []
-    for name in REMAT_VARIANTS + REMAT_VARIANTS[::-1]:
+    for name in REMAT_VARIANTS:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         bn_act.reset_launches()
@@ -1389,7 +1447,7 @@ def _remat_variants(label: str, cfg, apply, state, batch, epoch, phase,
                 f"{ms} ms, peak {gib} GiB)")
     print(f"{label} remat, one {profiler.phase_card_name(**phase)} step: "
           + "; ".join(
-        f"{n} {min(ms):.1f} ms (runs {[round(v, 1) for v in ms]}), peak "
+        f"{n} {min(ms):.1f} ms, peak "
         f"{max(gib):.2f} GiB, bn_act {want[n]} launches{before(n)}"
         for n, (ms, gib) in found.items()) + f" ({card})", flush=True)
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -1967,7 +2025,7 @@ def other_backbones(entry: dict, card: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         bn_act.reset_launches()
         times = []
-        for i in range(3):
+        for i in range(2):
             batch = next(batches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1977,10 +2035,11 @@ def other_backbones(entry: dict, card: str) -> None:
                 times.append((time.perf_counter() - t0) * 1e3)
             if not bool(torch.isfinite(m.loss)):
                 raise AssertionError(f"resnet12 step: loss {m.loss}")
-        if bn_act.launches != 3 * per_step:
+        if bn_act.launches != 2 * per_step:
             raise AssertionError(f"resnet12 step: bn_act launched "
-                                 f"{bn_act.launches} times, want 3 x "
+                                 f"{bn_act.launches} times, want 2 x "
                                  f"{per_step}")
+        next(batches)  # (b) keeps the batch it read with three steps here
         entry["launches"] += bn_act.launches
         step_ms = statistics.median(times)
         peak = torch.cuda.max_memory_allocated()
@@ -1995,9 +2054,6 @@ def other_backbones(entry: dict, card: str) -> None:
                  "train_so1_msl1",
                  lambda: builder.train_step(state, batch, 0, **phase), card,
                  bn_kernels=per_step)
-        _deterministic_cost(
-            "resnet12 train, one second-order MSL step",
-            lambda: builder.train_step(state, batch, 0, **phase), card)
         val = loader.get_val_batches()
         eval_batch = next(val)
         val.close()
@@ -2376,7 +2432,7 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
             step()
             if sampler.end_window(0, executable=name) is None:
                 raise AssertionError("telemetry: a sample window failed")
-        for kind in ("off", "health", "window", "window", "health", "off"):
+        for kind in ("off", "health", "window"):
             ms[kind].append(timed({"off": step,
                                    "health": lambda: step(health=True),
                                    "window": window}[kind]))
@@ -2390,7 +2446,7 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
         label_us = (time.perf_counter() - t0) / n_calls * 1e6
         labels = cfg.effective_task_microbatches() * (
             1 + 3 * k + (k if phase["use_msl"] else 1)) + 2
-        print(f"telemetry costs, one {name} step (median of 2, in turns): "
+        print(f"telemetry costs, one {name} step (one call each): "
               f"plain {med['off']:.1f} ms, health on {med['health']:.1f} ms "
               f"(+{med['health'] - med['off']:.1f}), in a sample window "
               f"with its attribution {med['window']:.1f} ms "
@@ -2400,9 +2456,6 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
               f"{label_us:.3f} us each with the profiler off "
               f"({labels * label_us / 1e3:.4f} ms per step) ({card})",
               flush=True)
-        _profiled(f"telemetry, one {name} step", step, card)
-        _sampled(f"telemetry, one {name} step", name, step, card,
-                 bn_kernels=bn_per_step(name))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -2724,9 +2777,11 @@ def fault_path(entry: dict, card: str) -> None:
     tmp = tempfile.mkdtemp(prefix="faults_", dir=runs_dir)
     marks = [("start", time.perf_counter())]
     try:
+        # Phase 13 runs the pod harness's legs: not again here.
         art = chaos.chaos(os.path.join(tmp, "chaos"), "cuda", quick=False,
                           log=lambda line: print(f"chaos: {line}",
-                                                 flush=True))
+                                                 flush=True),
+                          pod_legs=False)
         phases = art.pop("_phases")
         print(f"chaos: {json.dumps(art)}", flush=True)
         if art["status"] != "recovered":
@@ -3723,7 +3778,7 @@ def fleet_harnesses(entry: dict, card: str, src: str) -> None:
 MESH_CHILD_FLAG = "--mesh-child"
 MESH_CLI_ARGS = CLI_ARGS + ["--mesh_shape", "1", "2"]
 R12_MESH_ARGS = ["--bn_backend", "pallas", "--mesh_shape", "1", "2",
-                 "--batch_size", "16", "--cluster_collective_timeout_s", "0"]
+                 "--batch_size", "16"]
 MESH_TIMEOUT = 300
 
 
@@ -3734,14 +3789,13 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _run_ranks(tag: str, cmd, timeout: float, env=None) -> str:
+def _run_ranks(tag: str, cmd, timeout: float, env=None, proc=None) -> str:
     """Run ``cmd`` (one rank, or torchrun and its ranks) in a session of
-    its own; its output. Fails when it exits non-zero or outlives
-    ``timeout`` (a hung collective): the whole session is killed."""
+    its own, or wait for ``proc``, one :func:`_start_ranks` started; its
+    output. Fails when it exits non-zero or outlives ``timeout`` (a hung
+    collective): the whole session is killed."""
     import signal
-    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    proc = proc or _start_ranks(cmd, env)
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -3756,18 +3810,33 @@ def _run_ranks(tag: str, cmd, timeout: float, env=None) -> str:
     return out
 
 
-def _torchrun(tag: str, out: str, mode: str, argv, timeout: float):
-    """Two ranks of this script's ``mode`` child under torchrun (they
-    share the card, so gloo); each rank's result JSON, in rank order."""
+def _start_ranks(cmd, env=None) -> subprocess.Popen:
+    """Start ``cmd`` in a session of its own, its output piped."""
+    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def _start_torchrun(out: str, mode: str, argv) -> subprocess.Popen:
+    """Start two ranks of this script's ``mode`` child under torchrun
+    (they share the card, so gloo)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + ([os.environ["PYTHONPATH"]]
                   if os.environ.get("PYTHONPATH") else [])))
-    _run_ranks(tag, [sys.executable, "-m", "torch.distributed.run",
-                     "--nnodes", "1", "--nproc_per_node", "2",
-                     "--master_addr", "127.0.0.1", "--master_port",
-                     str(_free_port()), os.path.abspath(__file__),
-                     MESH_CHILD_FLAG, mode, out] + list(argv),
-               timeout, env=env)
+    return _start_ranks([sys.executable, "-m", "torch.distributed.run",
+                         "--nnodes", "1", "--nproc_per_node", "2",
+                         "--master_addr", "127.0.0.1", "--master_port",
+                         str(_free_port()), os.path.abspath(__file__),
+                         MESH_CHILD_FLAG, mode, out] + list(argv), env)
+
+
+def _torchrun(tag: str, out: str, mode: str, argv, timeout: float,
+              proc=None):
+    """Two ranks of this script's ``mode`` child under torchrun, or the
+    ones ``proc`` (:func:`_start_torchrun`) runs; each rank's result
+    JSON, in rank order."""
+    _run_ranks(tag, None, timeout,
+               proc=proc or _start_torchrun(out, mode, argv))
     ranks = []
     for r in range(2):
         with open(f"{out}.rank{r}.json") as f:
@@ -3961,8 +4030,10 @@ def _mesh_pod_rank(out: str, argv, info: dict) -> None:
     from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
     from howtotrainyourmamlpytorch_tpu_torch.parallel import (
         initialize_distributed)
-    initialize_distributed()
-    builder = ExperimentBuilder(train_maml_system.get_args(argv))
+    from howtotrainyourmamlpytorch_tpu_torch.resilience import cluster
+    cfg = train_maml_system.get_args(argv)
+    initialize_distributed(timeout_s=cluster.process_group_timeout(cfg))
+    builder = ExperimentBuilder(cfg)
     cfg = builder.cfg
     batches = builder.data.get_train_batches(0, 1)
     batch = next(batches)
@@ -4069,10 +4140,24 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
         env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
                    LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(_free_port()))
-        log = _run_ranks("mesh (a)", [sys.executable,
-                                      os.path.abspath(__file__),
-                                      MESH_CHILD_FLAG, "step", out, job],
-                         MESH_TIMEOUT, env=env)
+        # (a)'s rank and (c)'s ranks run beside (b)'s witness ranks (for
+        # run time); (b)'s CLI runs alone.
+        pod_argv = (["--name_of_args_json_file", RESNET12,
+                     "--experiment_root", os.path.join(tmp, "pod_run")]
+                    + R12_MESH_ARGS)
+        pod_proc = _start_torchrun(os.path.join(tmp, "pod"), "pod", pod_argv)
+        step_proc = _start_ranks([sys.executable, os.path.abspath(__file__),
+                                  MESH_CHILD_FLAG, "step", out, job], env)
+        try:
+            shard = _torchrun("mesh (b) witness", os.path.join(tmp, "shard"),
+                              "shard", [job], MESH_TIMEOUT)
+        finally:
+            try:
+                log = _run_ranks("mesh (a)", None, MESH_TIMEOUT,
+                                 proc=step_proc)
+            finally:
+                pod = _torchrun("mesh (c)", os.path.join(tmp, "pod"), "pod",
+                                pod_argv, MESH_TIMEOUT, proc=pod_proc)
         with open(f"{out}.rank0.json") as f:
             rank = json.load(f)
         got = torch.load(f"{out}.result.pt", weights_only=False)
@@ -4099,8 +4184,8 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
               f"unsharded {float(ref_m.loss)!r}, meta-gradient bitwise "
               f"{grads_bitwise}, new state bitwise {state_bitwise}; "
               f"step ms {[round(v, 1) for v in rank['step_ms']]} (first "
-              f"call, then warm; phase 4's bf16 second-order step "
-              f"{train['step_ms'][41]:.1f}), all-reduce ms "
+              f"call, then warm, beside (b)'s witness ranks; phase 4's bf16 "
+              f"second-order step {train['step_ms'][41]:.1f}), all-reduce ms "
               f"{[round(v, 3) for v in rank['all_reduce_ms']]} (the first "
               f"builds the NCCL communicator), bn_act launches "
               f"{rank['launches']} = 2 x {want}, peak "
@@ -4118,7 +4203,6 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
                             f"{float(ref_m.loss)}")
         entry["launches"] += rank["launches"]
         del ref_new, ref_g
-        seconds["a"] = round(time.perf_counter() - t0, 1)
 
         # (b) Two gloo ranks sharing the card. First a witness in f32,
         # where two ranks against one differ only in the order of the
@@ -4126,9 +4210,6 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
         # meta-gradient held to the one-rank one by F32_FLOORS, and a
         # rank left unreduced read against the same, which every floor
         # must refuse.
-        t0 = time.perf_counter()
-        shard = _torchrun("mesh (b) witness", os.path.join(tmp, "shard"),
-                          "shard", [job], MESH_TIMEOUT)
         got = torch.load(f"{os.path.join(tmp, 'shard')}.result.pt",
                          weights_only=False)
         ref = (float(ref_loss), {n: v.cpu() for n, v in ref_grads.items()})
@@ -4160,7 +4241,7 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
                             f"do not refuse a rank left unreduced")
         _rank_line("mesh (b) witness", shard, card)
         entry["launches"] += sum(r["launches"] for r in shard)
-        seconds["b witness"] = round(time.perf_counter() - t0, 1)
+        seconds["a, b witness, c"] = round(time.perf_counter() - t0, 1)
 
         # The CLI under torchrun, paused after epoch 0 and resumed.
         t0 = time.perf_counter()
@@ -4256,18 +4337,14 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
         entry["launches"] += sum(r["launches"] for r in paused + resumed)
         seconds["b"] = round(time.perf_counter() - t0, 1)
 
-        # (c) The ResNet-12 pod JSON on (1, 2): one second-order MSL step.
-        t0 = time.perf_counter()
+        # (c) The ResNet-12 pod JSON on (1, 2): one second-order MSL step
+        # (run above, beside (a) and the witness).
         print("mesh (c) cuts of the pod JSON: batch_size 256 -> 16 (8 tasks "
               "per rank, 8 one-task microbatches), mesh_shape (4, 8) -> "
-              "(1, 2) as 2 gloo ranks on one card, "
-              "cluster_collective_timeout_s 600 -> 0 (the pod fault domain, "
-              "item 8b), one train step (no epoch, eval or checkpoint)",
+              "(1, 2) as 2 gloo ranks on one card, one train step (no "
+              "epoch, eval or checkpoint); its own cluster knobs (600 s "
+              "budget, 10 s leases) kept; beside (a) and (b)'s witness",
               flush=True)
-        pod = _torchrun("mesh (c)", os.path.join(tmp, "pod"), "pod",
-                        ["--name_of_args_json_file", RESNET12,
-                         "--experiment_root", os.path.join(tmp, "pod_run")]
-                        + R12_MESH_ARGS, MESH_TIMEOUT)
         pod_losses = [float.fromhex(r["losses"][0]) for r in pod]
         if pod[0]["losses"] != pod[1]["losses"] or not all(
                 math.isfinite(v) for v in pod_losses):
@@ -4286,7 +4363,6 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
               f"{[r['want_launches'] for r in pod]} ({card})", flush=True)
         _rank_line("mesh (c)", pod, card)
         entry["launches"] += sum(r["launches"] for r in pod)
-        seconds["c"] = round(time.perf_counter() - t0, 1)
         print("phase 12 seconds per part: " + json.dumps(seconds),
               flush=True)
     finally:
@@ -4294,6 +4370,268 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("phase 12: " + "; ".join(failures))
+
+
+# Phase 13: the pod fault domain. scripts/torch_chaos_pod.py starts the
+# ranks (gloo, sharing the card) on the flagship JSON with phase 5's length
+# cuts; the cluster knobs are cut for run time (POD_ARGS). Its two chains
+# of legs, (a) then (b) and (c), are independent experiments: one harness
+# process each, side by side (for run time), while leg (d) runs here.
+POD_SCRIPT = os.path.join(REPO, "scripts", "torch_chaos_pod.py")
+POD_BUDGET_S = 20.0
+POD_LEASE_S = 1.0
+POD_ARGS = ["--budget", str(POD_BUDGET_S), "--lease-interval",
+            str(POD_LEASE_S), "--timeout", "300"]
+POD_CHAINS = ("peer_kill,restart", "elastic")
+POD_TIMEOUT = 600
+POD_ARMED = ["--cluster_collective_timeout_s", str(POD_BUDGET_S),
+             "--cluster_lease_interval_s", str(POD_LEASE_S)]
+
+
+def _pod_rank_cfg(cfg, world: int, orig: int = 0):
+    """The config a rank of a ``world``-rank pod run trains with (mesh
+    ``(world, 1)``, microbatches clamped to its share as the builder
+    clamps them); with ``orig`` > ``world``, a survivor of an ``orig``-rank
+    run at the degraded geometry (``derive_degraded_config``)."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import (
+        derive_degraded_config)
+    if orig > world:
+        c = derive_degraded_config(cfg.replace(mesh_shape=(orig, 1)),
+                                   world, orig)
+    else:
+        c = cfg.replace(mesh_shape=(world, 1))
+    return c.replace(task_microbatches=c.effective_task_microbatches(world))
+
+
+def _pod_launches(cfg, world: int, steps: dict, val_sweeps: int,
+                  test_models: int, orig: int = 0) -> int:
+    """BN-kernel launches of one rank of a pod run (``_train_path_launches``
+    at that rank's geometry): a killed run's survivor trains epoch 0 and
+    the steps of epoch 1 up to the kill, a restarted or resharded one
+    from the committed epoch to the end, with the test protocol."""
+    return _train_path_launches(_pod_rank_cfg(cfg, world, orig), 0, steps,
+                                val_sweeps, test_models)
+
+
+def _median(values) -> float:
+    v = list(values or [])[1:] or list(values or [])
+    return round(statistics.median(v), 1) if v else float("nan")
+
+
+def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
+    """Phase 13: the pod fault domain on the card (module docstring); adds
+    every rank's BN-kernel launches to ``entry``."""
+    import shutil
+    import signal
+    import tempfile
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.resilience import cluster
+    from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
+
+    runs_dir = os.path.join(REPO, ".smoke_runs")
+    os.makedirs(runs_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="pod_", dir=runs_dir)
+    seconds, failures, procs = {}, [], []
+    try:
+        t0 = time.perf_counter()
+        cfg = train_maml_system.get_args(
+            ["--name_of_args_json_file", FLAGSHIP] + CLI_ARGS)
+        config = os.path.join(tmp, "pod_config.json")
+        with open(config, "w") as f:
+            json.dump(cfg.to_dict(), f)
+        print(f"pod cuts of the flagship JSON: phase 5's length cuts "
+              f"({' '.join(CLI_ARGS)}), dispatch_sync_every 1, "
+              f"cluster_collective_timeout_s 0 -> {POD_BUDGET_S} and "
+              f"cluster_lease_interval_s 5 -> {POD_LEASE_S} (for run time), "
+              f"mesh_shape (n, 1) over n gloo ranks sharing the card, batch "
+              f"12 (6 tasks per rank of 2, 4 per rank of 3); width uncut; "
+              f"legs {' and '.join(POD_CHAINS)} in two harness processes "
+              f"side by side, leg (d) beside them (for run time) ({card})",
+              flush=True)
+        for i, chain in enumerate(POD_CHAINS):
+            with open(os.path.join(tmp, f"harness{i}.out"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, POD_SCRIPT, "--device", "cuda",
+                     "--config", config, "--out",
+                     os.path.join(tmp, f"pod{i}"), "--phases", chain]
+                    + POD_ARGS, cwd=REPO, stdout=log,
+                    stderr=subprocess.STDOUT, start_new_session=True))
+
+        # (d) armed, not tripped: one rank, bitwise phase 5's run; in this
+        # process while the harness's ranks run.
+        t1 = time.perf_counter()
+        bn_act.reset_launches()
+        rc, armed, run_s = _cli_run(POD_ARMED, os.path.join(tmp, "armed"))
+        armed_launches = bn_act.launches
+        seconds["d"] = round(time.perf_counter() - t1, 1)
+
+        art, deadline = {}, time.monotonic() + POD_TIMEOUT
+        for i, (chain, proc) in enumerate(zip(POD_CHAINS, procs)):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    with contextlib.suppress(ProcessLookupError):
+                        os.killpg(q.pid, signal.SIGKILL)
+                    q.wait()
+            with open(os.path.join(tmp, f"harness{i}.out")) as f:
+                out = f.read()
+            if proc.returncode is None or proc.returncode < 0:
+                raise AssertionError(
+                    f"pod {chain}: no exit within {POD_TIMEOUT} s; killed. "
+                    f"Output tail: {out[-3000:]}")
+            part = json.loads(out.strip().splitlines()[-1])
+            if proc.returncode != 0 or part.get("status") != "recovered":
+                failures.append(
+                    f"pod {chain}: harness exit {proc.returncode}, status "
+                    f"{part.get('status')}: " + json.dumps(
+                        {k: v for k, v in part.items()
+                         if k.endswith("ok") or "tail" in k})[-4000:])
+            art.update(part)
+        seconds["all"] = round(time.perf_counter() - t0, 1)
+        with open(os.path.join(tmp, "pod_artifact.json"), "w") as f:
+            json.dump(art, f)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        shutil.copy(os.path.join(tmp, "pod_artifact.json"),
+                    os.path.join(REPO, "chiprun_out", "pod_artifact.json"))
+        iters = cfg.total_iter_per_epoch
+        killed = {0: iters, 1: art["peer_kill_kill_iter"] - iters}
+        rest = {1: iters}
+        models = cfg.max_models_to_save
+
+        # (a) peer_kill.
+        want = _pod_launches(cfg, 2, killed, 1, 0)
+        got = art.get("peer_kill_survivor_launches")
+        if got != want:
+            failures.append(f"pod (a): rank 0 launched bn_act {got} times "
+                            f"up to iteration {art['peer_kill_kill_iter']}, "
+                            f"derived {want}")
+        print(f"pod (a) peer_kill: host 1 SIGKILLed at iteration "
+              f"{art['peer_kill_kill_iter']} (exit "
+              f"{art['peer_kill_victim_exit_code']}); rank 0 exit "
+              f"{art['peer_kill_survivor_exit_code']} "
+              f"{art['peer_kill_survivor_latency_s']} s after the death "
+              f"(bound {art['peer_kill_latency_bound_s']} s), peer_lost "
+              f"suspects {art['peer_kill_suspect_hosts']}, bundle "
+              f"{art['peer_kill_bundle_files']} reason "
+              f"{art['peer_kill_bundle_reason']}, metrics.prom "
+              f"cluster/peer_losses {art['peer_kill_prom_peer_losses']}; "
+              f"committed epoch {art['peer_kill_committed_epoch']} at iter "
+              f"{art['peer_kill_committed_iter']}; rank 0 bn_act launches "
+              f"{got} = derived {want}; host 1's count unread (SIGKILL "
+              f"flushes nothing); rank 0 step ms median "
+              f"{_median(art.get('peer_kill_survivor_step_ms'))} ({card})",
+              flush=True)
+        entry["launches"] += got or 0
+
+        # (b) restart, then the planted stale manifest.
+        want = _pod_launches(cfg, 2, rest, 1, models)
+        for key, tag in (("restart_launches", "restart"),
+                         ("restart_consensus_launches", "consensus")):
+            if art.get(key) != [want, want]:
+                failures.append(f"pod (b) {tag}: bn_act launches "
+                                f"{art.get(key)}, derived {want} per rank")
+            entry["launches"] += sum(art.get(key) or [])
+        print(f"pod (b) restart: exits {art.get('restart_exit_codes')}, "
+              f"{art.get('restart_resumed_lines')}, committed epoch file "
+              f"CRC unchanged {art.get('restart_committed_crc_unchanged')}, "
+              f"test protocol {art.get('restart_test_protocol_ran')}; "
+              f"launches {art.get('restart_launches')} = {want} per rank; "
+              f"step ms median per rank "
+              f"{[_median(v) for v in art.get('restart_step_ms') or []]} "
+              f"({card})", flush=True)
+        print(f"pod (b) consensus: rank 1's MANIFEST.json without epoch "
+              f"{art.get('restart_consensus_dropped_epoch')}; "
+              f"{art.get('restart_consensus_lines')}; "
+              f"{art.get('restart_consensus_resumed_lines')}; "
+              f"consensus_resume rows (epoch, rank 0's view) "
+              f"{art.get('restart_consensus_rows')}; final checkpoint bytes "
+              f"equal the restart's {art.get('restart_consensus_final_crc_equal')}"
+              f"; consensus-resume wall (launch to first step) "
+              f"{art.get('restart_consensus_resume_wall_s')} s; launches "
+              f"{art.get('restart_consensus_launches')} ({card})",
+              flush=True)
+
+        # (c) elastic: 3 ranks, host 0 killed, 2 survivors, a cold run.
+        want0 = _pod_launches(cfg, 3, killed, 1, 0)
+        want1 = _pod_launches(cfg, 2, rest, 1, models, orig=3)
+        gen0 = art.get("elastic_generation0_launches") or {}
+        gen1 = art.get("elastic_generation1_launches") or {}
+        cold = art.get("elastic_cold_launches") or {}
+        for tag, got, w in (("generation 0", gen0, want0),
+                            ("generation 1", gen1, want1),
+                            ("cold", cold, want1)):
+            if sorted(got.values()) != [w, w]:
+                failures.append(f"pod (c) {tag}: bn_act launches {got}, "
+                                f"derived {w} per process")
+            entry["launches"] += sum(v or 0 for v in got.values())
+        print(f"pod (c) elastic: host 0 SIGKILLed at iteration "
+              f"{art.get('elastic_kill_iter')}; survivors exit "
+              f"{art.get('elastic_survivor_exit_codes')}, roster "
+              f"{art.get('elastic_roster')} generation "
+              f"{art.get('elastic_roster_generation')}, reshard rows "
+              f"{art.get('elastic_reshard_rows')} (suspects "
+              f"{art.get('elastic_reshard_suspects')}), report "
+              f"{art.get('elastic_report_elastic')}; generation-1 (host, "
+              f"rank, world) {art.get('elastic_generation1_ranks')} resumed "
+              f"at {art.get('elastic_generation1_start_iters')}; trip "
+              f"{art.get('elastic_trip_after_death_s')} s after the death, "
+              f"reshard wall (trip to generation 1's first step) "
+              f"{art.get('elastic_reshard_wall_s')} s, death to first step "
+              f"{art.get('elastic_death_to_generation1_step_s')} s; cold "
+              f"2-rank run exits {art.get('elastic_cold_exit_codes')}, final "
+              f"checkpoint bitwise the survivors' "
+              f"{art.get('elastic_bitwise_equal_cold')}; launches generation "
+              f"0 {gen0} = {want0}, generation 1 {gen1} = {want1}, cold "
+              f"{cold} = {want1}; step ms median per rank generation 1 "
+              f"{[_median(v) for v in art.get('elastic_generation1_step_ms') or []]}"
+              f", cold {[_median(v) for v in art.get('elastic_cold_step_ms') or []]}"
+              f" ({card})", flush=True)
+        print("pod harness seconds per phase: " + json.dumps(
+            {k: art.get(f"{k}_seconds")
+             for k in ("peer_kill", "restart", "elastic")}), flush=True)
+
+        # (d) armed, not tripped (run above, beside the harness).
+        launches = armed_launches
+        leaves = _state_leaves(armed.state)
+        bitwise = all(torch.equal(leaves[n].cpu(), cli["leaves"][n])
+                      for n in cli["leaves"])
+        beats = [r for r in read_jsonl(os.path.join(
+            armed.paths["logs"], "events.jsonl")) if r["event"] == "heartbeat"]
+        lease = os.path.join(armed.paths["base"], cluster.LEASE_DIR,
+                             "host_0.lease")
+        if (rc != 0 or not bitwise or launches != cli["launches"]
+                or not os.path.exists(lease)
+                or not all("peer_lease_age_seconds" in b for b in beats)):
+            failures.append(f"pod (d): exit {rc}, bitwise phase 5 "
+                            f"{bitwise}, launches {launches} vs "
+                            f"{cli['launches']}, lease "
+                            f"{os.path.exists(lease)}, heartbeat rows "
+                            f"{[sorted(b) for b in beats]}")
+        print(f"pod (d) armed, not tripped: the flagship CLI on one rank "
+              f"with {' '.join(POD_ARMED)}: exit {rc} in {run_s:.1f} s, "
+              f"final state bitwise phase 5's (domain off) {bitwise}, "
+              f"bn_act launches {launches} = {cli['launches']}, lease "
+              f"written, heartbeat lease ages "
+              f"{[b.get('peer_lease_age_seconds') for b in beats]}; phase 5 "
+              f"epoch seconds {cli['epoch_seconds']}, armed "
+              f"{_epoch_seconds(armed.paths['logs'])} (beside the harness's "
+              f"ranks) ({card})", flush=True)
+        entry["launches"] += launches
+        print("phase 13 seconds per part: " + json.dumps(seconds),
+              flush=True)
+    finally:
+        for q in procs:  # none is left running, whatever raised
+            if q.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(q.pid, signal.SIGKILL)
+                q.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 13: " + "; ".join(failures))
 
 
 def _epoch_seconds(logs: str) -> list:
@@ -4349,7 +4687,9 @@ def main() -> int:
                         ("fleet", lambda e, c: fleet_harnesses(
                             e, c, results["cli"]["saved_models"])),
                         ("mesh", lambda e, c: mesh_path(
-                            e, c, results["train"], results["cli"]))):
+                            e, c, results["train"], results["cli"])),
+                        ("pod", lambda e, c: pod_fault_domain(
+                            e, c, results["cli"]))):
         t1 = time.perf_counter()
         results[name] = phase(entry, card)
         seconds[name] = round(time.perf_counter() - t1, 1)

@@ -102,6 +102,9 @@ class Manifest:
         self.directory = directory
         self.path = os.path.join(directory, MANIFEST_FILE)
         self.records: Dict[str, Dict[str, Any]] = {}
+        # Whether a readable manifest existed on disk: "no manifest yet"
+        # is not "the manifest says nothing".
+        self.loaded = False
         self._load()
 
     def _load(self) -> None:
@@ -114,6 +117,7 @@ class Manifest:
         if isinstance(recs, dict):
             self.records = {str(k): dict(v) for k, v in recs.items()
                             if isinstance(v, dict)}
+            self.loaded = True
 
     def _write(self) -> None:
         os.makedirs(self.directory, exist_ok=True)
@@ -184,6 +188,19 @@ class Manifest:
     def get(self, tag) -> Optional[Dict[str, Any]]:
         return self.records.get(str(tag))
 
+    def committed(self) -> List[Dict[str, Any]]:
+        """Committed records, newest first (by iteration; the 'latest'
+        tag wins ties: it is by definition at least as new)."""
+        recs = [r for r in self.records.values()
+                if r.get("status") == COMMITTED]
+        return sorted(recs, key=lambda r: (int(r.get("iter") or 0),
+                                           r.get("tag") == "latest"),
+                      reverse=True)
+
+    def pending(self) -> List[Dict[str, Any]]:
+        return [r for r in self.records.values()
+                if r.get("status") != COMMITTED]
+
 
 def verify_record(directory: str, record: Dict[str, Any]) -> Dict[str, Any]:
     """Full-read verification of one committed record: file present,
@@ -203,32 +220,52 @@ def verify_record(directory: str, record: Dict[str, Any]) -> Dict[str, Any]:
     return {"ok": True, "reason": "ok"}
 
 
-def sweep(manifest: Manifest) -> Dict[str, List[str]]:
-    """The writer's startup sweep of a checkpoint directory: removes
-    ``*.tmp`` leftovers of a killed write and drops ``pending`` records (the
-    record only — a file at the final path under a pending record is the
-    PREVIOUS committed version, since writes are atomic renames) and
-    records whose file is gone. ``*.corrupt`` quarantine leftovers stay
-    for forensics. Returns ``{"deleted_files": [...], "dropped_records":
-    [...]}``."""
+def sweep(manifest: Manifest, keep_tags=None,
+          remove_corrupt: bool = True,
+          dry_run: bool = False) -> Dict[str, List[str]]:
+    """Garbage-collect a checkpoint directory against its manifest (the
+    JAX function). Removes ``*.tmp`` leftovers of a killed write;
+    ``pending`` records (the record only: a file at the final path under a
+    pending record is the PREVIOUS committed version, since writes are
+    atomic renames); records whose file is gone; with ``keep_tags``,
+    committed epoch records and files outside the retention set
+    (``latest`` is never pruned); and ``*.corrupt`` quarantine leftovers
+    (``remove_corrupt``; the writer's startup sweep leaves them for
+    forensics). ``dry_run`` reports without touching anything. Returns
+    ``{"deleted_files": [...], "dropped_records": [...]}``."""
     directory = manifest.directory
     deleted: List[str] = []
+    dropped: List[str] = []
     try:
         names = sorted(os.listdir(directory))
     except OSError:
         names = []
-    for name in names:
-        if name.endswith(".tmp") or ".tmp." in name:
+
+    def unlink(name: str) -> None:
+        deleted.append(name)
+        if not dry_run:
             try:
                 os.remove(os.path.join(directory, name))
-                deleted.append(name)
             except OSError:
-                pass
-    dropped = [tag for tag, rec in sorted(manifest.records.items())
-               if rec.get("status") != COMMITTED or not os.path.isfile(
-                   os.path.join(directory, rec.get("file") or ""))]
-    for tag in dropped:
-        manifest.records.pop(tag, None)
-    if dropped:
-        manifest._write()
+                deleted.pop()
+
+    for name in names:
+        if name.endswith(".tmp") or ".tmp." in name:
+            unlink(name)
+        elif remove_corrupt and name.endswith(".corrupt"):
+            unlink(name)
+    keep = (None if keep_tags is None
+            else {str(t) for t in keep_tags} | {"latest"})
+    for tag, rec in sorted(manifest.records.items()):
+        path = os.path.join(directory, rec.get("file") or "")
+        if rec.get("status") != COMMITTED or not os.path.isfile(path):
+            dropped.append(tag)
+        elif keep is not None and tag not in keep:
+            unlink(rec["file"])
+            dropped.append(tag)
+    if not dry_run:
+        for tag in dropped:
+            manifest.records.pop(tag, None)
+        if dropped:
+            manifest._write()
     return {"deleted_files": deleted, "dropped_records": dropped}

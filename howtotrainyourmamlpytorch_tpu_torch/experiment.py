@@ -80,9 +80,23 @@ and epoch boundary. Barriers order process 0's writes before the
 others' reads (``builder_init``, ``checkpoints_written``). Crash bundles
 go to ``crash_bundle_p<rank>``.
 
+The pod fault domain (``cluster_collective_timeout_s`` > 0,
+``resilience/cluster.py``), at the JAX package's points: the run installs
+the domain (its lease under ``<experiment>/cluster/``, touched at every
+sync point, every heartbeat row and every watchdog poll), arms the
+watchdog's ``collective`` deadline at the cluster budget, and a lost
+peer ends a rank with a ``peer_lost`` row naming the suspect hosts, a
+crash bundle and exit 73 (``EXIT_PEER_LOST``); ``kill_peer`` SIGKILLs a
+rank at the sync point, before the stop-decision collective. After such
+a restart ``_resume`` agrees every rank on the newest epoch all of them
+see committed. With ``elastic_mode=1`` (``resilience/elastic.py``) the
+survivors agree on a roster and restart in place at the degraded
+geometry (``apply_roster``, before anything reads the config); a
+degraded run counts its epochs and re-expands when every missing host
+has asked to rejoin.
+
 Not ported yet (each raises when set away from its default, naming its
-ROADMAP.md Queue 1 item): the AOT store and compile cache, the pod fault
-domain and elastic mode.
+ROADMAP.md Queue 1 item): the AOT store and compile cache.
 """
 
 from __future__ import annotations
@@ -116,9 +130,11 @@ from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import (
     make_mesh, make_sharded_steps)
 from howtotrainyourmamlpytorch_tpu_torch.parallel.multihost import (
     abort_all_if_any, agree_int_from_main, any_process_true,
-    any_process_true_each, barrier)
+    any_process_true_each, barrier, gather_host_ints)
 from howtotrainyourmamlpytorch_tpu_torch.resilience import (EXIT_PREEMPTED,
                                                             DivergenceGuard,
+                                                            cluster,
+                                                            elastic,
                                                             faults,
                                                             flightrec,
                                                             watchdog)
@@ -140,16 +156,12 @@ def refuse_unported_knobs(cfg: MAMLConfig) -> None:
     """Raise ``NotImplementedError`` for a knob whose subsystem the port
     does not have yet, set away from its default: a run must not quietly
     do less than its config says."""
-    pod = "pod fault domain (item 8b)"
     checks = (
         (bool(cfg.aot_store_dir), "aot_store_dir (the AOT executable store)",
          "AOT/compile-cache slice"),
         (bool(cfg.compilation_cache_dir),
          "compilation_cache_dir (the persistent compile cache)",
          "AOT/compile-cache slice"),
-        (cfg.cluster_collective_timeout_s > 0,
-         "cluster_collective_timeout_s > 0 (the pod fault domain)", pod),
-        (bool(cfg.elastic_mode), "elastic_mode (elastic resharding)", pod),
     )
     for unported, what, item in checks:
         if unported:
@@ -202,6 +214,17 @@ class ExperimentBuilder:
         # clears a previous builder's plan.
         faults.configure(os.environ.get(faults.ENV_VAR, "")
                          or cfg.fault_spec)
+        # Elastic pod: a process restarted in place over a survivor
+        # roster carries the MAML_ELASTIC_* trio; the config is degraded
+        # to that roster's geometry HERE, before the mesh, plan or loader
+        # reads it (generation 0, the ordinary case, leaves it as is).
+        cfg, self._roster = elastic.apply_roster(cfg)
+        if self._roster is not None:
+            print(f"elastic: generation {self._roster.generation} roster "
+                  f"{list(self._roster.roster)} of "
+                  f"{self._roster.orig_processes} original hosts; mesh "
+                  f"{cfg.mesh_shape}, {cfg.elastic_pad_tasks} pad "
+                  f"task(s)", flush=True)
         self.paths = build_experiment_folder(cfg.experiment_root,
                                              cfg.experiment_name)
         cfg = _mesh_geometry(cfg, multihost.process_count())
@@ -281,6 +304,11 @@ class ExperimentBuilder:
         self._beacon: Optional[watchdog.ProgressBeacon] = None
         self._flightrec: Optional[flightrec.FlightRecorder] = None
         self._eval_compile_stamped = False
+        # Pod fault domain and elastic policy: installed for
+        # run_experiment only, iff cluster_collective_timeout_s > 0 (and
+        # elastic_mode=1 for the policy).
+        self._cluster: Optional[cluster.ClusterFaultDomain] = None
+        self._elastic: Optional[elastic.ElasticPolicy] = None
         self.state = init_train_state(cfg, self.model_init, seed=cfg.seed,
                                       device=self.device)
         self.current_iter = 0
@@ -327,6 +355,27 @@ class ExperimentBuilder:
         if from_latest and not any_process_true(
                 self.ckpt.has_any_checkpoint() or self.ckpt.meta_from_disk):
             return  # fresh run with continue_from_epoch='latest'
+        if (from_latest and self._multihost
+                and cluster.cluster_enabled(self.cfg)):
+            # Consensus resume: after a peer-loss restart every rank
+            # gathers its view of the newest committed epoch; when any
+            # view disagrees (a stale cache or damaged MANIFEST.json on
+            # SOME host), ALL ranks adopt the newest epoch every one of
+            # them sees committed, instead of process 0's 'latest'.
+            # Unanimous views keep the ordinary 'latest' path.
+            local_view = cluster.latest_committed_epoch(self.ckpt.manifest)
+            agreed = cluster.consensus_epoch(gather_host_ints(local_view))
+            if agreed >= 0 and any_process_true(agreed != local_view):
+                from_latest = False
+                tag = agreed
+                self.registry.gauge(cluster.CONSENSUS_EPOCH_GAUGE).set(
+                    agreed)
+                self.jsonl.log(cluster.CONSENSUS_EVENT,
+                               consensus_epoch=agreed, local_view=local_view)
+                print(f"cluster consensus: hosts disagree on the newest "
+                      f"committed checkpoint (local view {local_view}); "
+                      f"resuming every host from epoch {agreed}",
+                      flush=True)
         template_shapes = state_leaf_shapes(self.state)
         err: Optional[BaseException] = None
         state, meta = self.state, {}
@@ -496,6 +545,17 @@ class ExperimentBuilder:
                         # A wedged step ('step' is stamped): the watchdog
                         # must end the process.
                         faults.hang()
+                    if self._cluster is not None:
+                        # Heartbeat lease: a rate-limited touch on a
+                        # fetch that already synced.
+                        self._cluster.heartbeat(detail=self.current_iter)
+                    if faults.maybe_fire("kill_peer",
+                                         step=self.current_iter):
+                        # A lost host as its peers see it: no handler, no
+                        # save, no cleanup, BEFORE the stop-decision
+                        # collective below, so the peers strand in it
+                        # and must name this rank and exit 73.
+                        os.kill(os.getpid(), signal.SIGKILL)
                     # Health before the guard: a divergence post-mortem
                     # reads warn -> rewind in log order.
                     if metrics.health is not None:
@@ -643,6 +703,15 @@ class ExperimentBuilder:
         progress_age = beacon.age() if beacon is not None else None
         if progress_age is not None:
             reg.gauge(watchdog.PROGRESS_AGE_GAUGE).set(progress_age)
+        # Pod fault domain: refresh this rank's lease and put every
+        # rank's lease age on the row, so a stalling peer shows in
+        # events.jsonl before any deadline trips.
+        lease_ages = None
+        if self._cluster is not None:
+            self._cluster.heartbeat(detail=f"epoch_{epoch}", force=True)
+            lease_ages = {str(h): (round(a, 3) if np.isfinite(a) else None)
+                          for h, a in sorted(
+                              self._cluster.peer_lease_ages().items())}
         self.jsonl.log(
             "telemetry", epoch=epoch, iter=self.current_iter,
             step_seconds_p50=tsum.get("p50_step_seconds"),
@@ -662,6 +731,8 @@ class ExperimentBuilder:
                        progress_age_seconds=progress_age,
                        progress_phase=(beacon.current()[0]
                                        if beacon is not None else None),
+                       **({"peer_lease_age_seconds": lease_ages}
+                          if lease_ages is not None else {}),
                        **({"alerts_firing": self._alerts.firing_summary()}
                           if self._alerts is not None else {}))
         self._last_heartbeat_ts = time.time()
@@ -745,11 +816,17 @@ class ExperimentBuilder:
         """Train, validate and test under the entry point's numerics
         policy (TF32 off for f32 configs, cuDNN deterministic; restored
         on return), with the watchdog and flight recorder installed for
-        the run when any watchdog deadline is on."""
+        the run when any watchdog deadline is on, and the pod fault
+        domain (and elastic policy) when the cluster budget is."""
         cfg = self.cfg
-        deadlines = watchdog.deadlines_from_config(cfg)
+        # The cluster budget tightens the watchdog's collective deadline
+        # (and turns the watchdog on: the watchdog thread enforces it).
+        deadlines = cluster.arm_deadlines(
+            cfg, watchdog.deadlines_from_config(cfg))
         wd_enabled = any(v > 0 for v in deadlines.values())
-        prev_recorder = prev_beacon = prev_profile = None
+        prev_recorder = prev_beacon = prev_profile = prev_cluster = None
+        if cluster.cluster_enabled(cfg):
+            prev_cluster = self._install_cluster()
         if wd_enabled:
             self._flightrec = flightrec.FlightRecorder(
                 cfg.flight_recorder_events)
@@ -762,7 +839,7 @@ class ExperimentBuilder:
                 registry=self.registry, jsonl=self.jsonl,
                 prom_path=f"{self.paths['logs']}/metrics.prom",
                 poll_interval_s=cfg.watchdog_poll_interval_s,
-                process_index=self.mesh.rank).start()
+                process_index=self.mesh.rank, cluster=self._cluster).start()
             # Every metrics row shows "0 trips", not a missing counter.
             self.registry.counter(watchdog.TRIPS_COUNTER)
         if cfg.profile_every_n_steps > 0:
@@ -808,6 +885,11 @@ class ExperimentBuilder:
             if self._watchdog is not None:
                 self._watchdog.stop()
                 self._watchdog = None
+            if self._cluster is not None:
+                self._cluster.close()
+                cluster.install(prev_cluster)
+                self._cluster = None
+                self._elastic = None
             if self._perf is not None:
                 if self.is_main_process:
                     self._write_profile_json()
@@ -821,6 +903,49 @@ class ExperimentBuilder:
                 # Release the writer's thread and file handle.
                 self._tb.close()
                 self._tb = None
+
+    def _install_cluster(self) -> Optional[cluster.ClusterFaultDomain]:
+        """Install the pod fault domain (and, with ``elastic_mode=1``,
+        the elastic policy on it) for the run; returns the previous
+        domain. Its counters and gauges are registered at once, so an
+        armed run reports "0 peer losses", "0 reshards"."""
+        cfg = self.cfg
+        logs = self.paths["logs"]
+        self._cluster = cluster.ClusterFaultDomain(
+            lease_dir=os.path.join(self.paths["base"], cluster.LEASE_DIR),
+            process_index=self.mesh.rank, num_processes=self.mesh.world,
+            collective_timeout_s=cfg.cluster_collective_timeout_s,
+            stalled_after_s=cluster.stalled_after(cfg),
+            dead_after_s=cluster.dead_after(cfg),
+            lease_interval_s=cfg.cluster_lease_interval_s,
+            registry=self.registry, jsonl=self.jsonl,
+            bundle_dir=self._bundle_dir(), prom_path=f"{logs}/metrics.prom")
+        prev = cluster.install(self._cluster)
+        self._cluster.heartbeat(force=True)  # the lease exists from t0
+        self.registry.counter(cluster.PEER_LOSSES_COUNTER)
+        if elastic.elastic_enabled(cfg):
+            ros, n = self._roster, self.mesh.world
+            self._elastic = elastic.ElasticPolicy(
+                lease_dir=self._cluster.lease.lease_dir,
+                process_index=self.mesh.rank,
+                roster=ros.roster if ros is not None else range(n),
+                generation=ros.generation if ros is not None else 0,
+                orig_processes=ros.orig_processes if ros is not None else n,
+                max_lost_hosts=cfg.elastic_max_lost_hosts,
+                timeout_s=elastic.reshard_timeout(cfg),
+                mesh_dcn=int(cfg.mesh_shape[0]), lease=self._cluster.lease,
+                registry=self.registry, jsonl=self.jsonl,
+                prom_path=f"{logs}/metrics.prom")
+            self._cluster.elastic = self._elastic
+            for name in (elastic.RESHARDS_COUNTER,
+                         elastic.DEGRADED_EPOCHS_COUNTER,
+                         elastic.RE_EXPANSIONS_COUNTER):
+                self.registry.counter(name)
+            self.registry.gauge(elastic.GENERATION_GAUGE).set(
+                float(self._elastic.generation))
+            self.registry.gauge(elastic.LOST_HOSTS_GAUGE).set(
+                float(len(self._elastic.missing_hosts())))
+        return prev
 
     def _write_profile_json(self) -> None:
         """Persist the phase cost cards as ``logs/PROFILE.json`` (the JAX
@@ -887,6 +1012,13 @@ class ExperimentBuilder:
                     # rank leaving while others start the next epoch
                     # would hang their first all-reduce.
                     self._preempted = any_process_true(self._preempted)
+                if (not self._preempted and self._elastic is not None
+                        and self._elastic.degraded):
+                    # A degraded elastic segment: count the epoch and
+                    # look for every missing host's rejoin file.
+                    self.registry.counter(
+                        elastic.DEGRADED_EPOCHS_COUNTER).inc()
+                    self._maybe_re_expand()
         finally:
             for sig, prev in prev_handlers:
                 signal.signal(sig, prev)
@@ -897,6 +1029,58 @@ class ExperimentBuilder:
             # saved, and it is still a preemption (exit 75).
             return {"preempted_at_iter": self.current_iter}
         return {"paused_at_iter": self.current_iter}
+
+    def _maybe_re_expand(self) -> None:
+        """Epoch-boundary re-expansion: when every host missing from the
+        degraded roster has a rejoin file (a backfilled replacement
+        waiting in ``elastic.backfill_wait``), the survivors agree (one
+        AND-reduce, so a straggling filesystem view delays rather than
+        splits the decision), process 0 writes the next generation's
+        FULL roster, checkpoints drain, and every rank restarts in place
+        at the original geometry from the committed epoch. Not ready:
+        keep training degraded (one directory listing per epoch)."""
+        pol = self._elastic
+        rejoins = elastic.read_rejoins(pol.lease_dir)
+        ready = all(h in rejoins for h in pol.missing_hosts())
+        if self._multihost:
+            ready = not any_process_true(not ready)  # AND over ranks
+        if not ready:
+            return
+        # Everything queued is committed before the image is replaced:
+        # the full-roster run resumes from the manifest this completes.
+        self.ckpt_writer.drain()
+        if self.is_main_process:
+            # A previous attempt's candidate socket must not leak; the
+            # new one stays bound until exec (close-on-exec frees the
+            # port exactly when the new rank 0's store needs it).
+            prev_sock = getattr(self, "_re_expand_sock", None)
+            if prev_sock is not None:
+                try:
+                    prev_sock.close()
+                except OSError:
+                    pass
+            self._re_expand_sock, coord = \
+                elastic.bind_coordinator_candidate()
+            try:
+                elastic.write_roster(pol.lease_dir,
+                                     pol.full_roster_doc(coord))
+            except OSError as e:
+                # One storage hiccup keeps training degraded and retries
+                # at the next boundary; the read-back below returns.
+                logging.getLogger(__name__).warning(
+                    "elastic re-expansion roster write failed (%s: %s); "
+                    "retrying at the next epoch boundary",
+                    type(e).__name__, e)
+        if self._multihost:
+            barrier("elastic_re_expand")
+        doc = elastic.read_roster(pol.lease_dir)
+        if doc is None or int(doc.get("generation", 0)) <= pol.generation:
+            return  # the write failed or a stale read: retry later
+        try:
+            self.ckpt_writer.close()
+        except Exception:  # noqa: BLE001 — the exec goes ahead
+            pass
+        pol.exec_into(doc)  # no return (tests inject pol._exec)
 
     def _handle_signal(self, signum=None, frame=None) -> None:
         """First SIGTERM/SIGINT: drain (finish the in-flight step,

@@ -23,9 +23,12 @@ the CPU tests also run.
 * The host-level agreement collectives (:func:`any_process_true`,
   :func:`agree_int_from_main`, :func:`gather_host_floats`, ...) run
   inside a ``collective`` watchdog phase (:func:`_collective`): a peer
-  that dies mid-collective strands the survivors with no exception,
-  the hang the ``watchdog_collective_timeout_s`` deadline ends. The
-  ``hang_collective`` fault fires inside that phase.
+  that dies mid-collective strands the survivors (the hang the
+  ``watchdog_collective_timeout_s`` deadline ends, or the tighter
+  ``cluster_collective_timeout_s`` with the pod fault domain armed) or
+  makes the collective raise (gloo over TCP sees the closed pairs); the
+  pod fault domain attributes both. The ``hang_collective`` fault fires
+  inside that phase.
 
 Every function is a no-op with one process (no process group).
 """
@@ -33,6 +36,7 @@ Every function is a no-op with one process (no process group).
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -43,7 +47,8 @@ import torch.distributed as dist
 from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
                                                         resolve_device)
 from howtotrainyourmamlpytorch_tpu_torch.meta.inner import Episode
-from howtotrainyourmamlpytorch_tpu_torch.resilience import faults, watchdog
+from howtotrainyourmamlpytorch_tpu_torch.resilience import (cluster, faults,
+                                                            watchdog)
 
 _ENV_RANK = "RANK"
 _ENV_WORLD = "WORLD_SIZE"
@@ -63,14 +68,24 @@ def _collective(name: str):
     caller was in. The ``hang_collective`` fault (call-counted:
     ``hang_collective@N`` sleeps the Nth collective) fires INSIDE the
     scope and before the one-process early returns, so a stuck
-    collective is simulable on one process. One None check each when no
-    beacon or plan is installed.
+    collective is simulable on one process. An exception escaping the
+    body (a transport error: a dead gloo peer raises here instead of
+    hanging) goes through the pod fault domain's attributed peer-lost
+    exit before it is re-raised. One None check each when no beacon,
+    plan or domain is installed.
     """
     if faults.maybe_fire("hang_collective"):
         with watchdog.phase("collective", detail=name):
             faults.hang()
     with watchdog.phase("collective", detail=name):
-        yield
+        try:
+            yield
+        except Exception as e:
+            # Exits EXIT_PEER_LOST (73) when a multi-process domain is
+            # installed and the leases name a peer; otherwise (or with
+            # an injected trip action) the error propagates unchanged.
+            cluster.maybe_trip_on_collective_error(name, e)
+            raise
 
 
 def is_initialized() -> bool:
@@ -122,7 +137,8 @@ def staged(tensor: torch.Tensor, group=None) -> bool:
     return tensor.is_cuda and backend(group) == "gloo"
 
 
-def initialize_distributed(device: DeviceLike = None) -> bool:
+def initialize_distributed(device: DeviceLike = None,
+                           timeout_s: Optional[float] = None) -> bool:
     """Join the ranks torchrun started into the default process group.
 
     Reads ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``
@@ -130,7 +146,11 @@ def initialize_distributed(device: DeviceLike = None) -> bool:
     With none of ``RANK`` / ``WORLD_SIZE`` set it is a no-op and returns
     False; a partial set raises. ``device`` is the caller's (the card by
     default): it picks the backend (:func:`choose_backend`), and NCCL
-    binds the rank's card (:func:`rank_device`). Returns True iff more
+    binds the rank's card (:func:`rank_device`). ``timeout_s`` is the
+    group's collective timeout (None: the backend's default, 30 minutes
+    for gloo and 10 for NCCL); an armed pod fault domain passes
+    ``cluster.process_group_timeout(cfg)``, so the backend cannot end a
+    stranded rank before its attributed exit. Returns True iff more
     than one process runs after the call.
     """
     if is_initialized():
@@ -149,9 +169,11 @@ def initialize_distributed(device: DeviceLike = None) -> bool:
     name = choose_backend(dev)
     if name == "nccl":
         torch.cuda.set_device(dev)
+    kw = ({} if timeout_s is None
+          else {"timeout": datetime.timedelta(seconds=float(timeout_s))})
     dist.init_process_group(name, init_method="env://",
                             rank=int(os.environ[_ENV_RANK]),
-                            world_size=int(os.environ[_ENV_WORLD]))
+                            world_size=int(os.environ[_ENV_WORLD]), **kw)
     return process_count() > 1
 
 

@@ -10,16 +10,17 @@ package's ``resilience/`` modules):
   dumps all-thread stacks and the flight ring, then exits
   :data:`EXIT_HUNG`;
 * :mod:`~.flightrec` — the bounded in-memory event ring dumped as
-  ``flight.jsonl`` into every crash bundle.
+  ``flight.jsonl`` into every crash bundle;
+* :mod:`~.cluster` — the pod fault domain: heartbeat leases, a lost peer
+  named and :data:`EXIT_PEER_LOST`, the consensus resume;
+* :mod:`~.elastic` — with ``elastic_mode=1``, the survivors' roster
+  consensus and restart in place at the degraded geometry.
 
 Metrics: these modules, the checkpoint writer and the loader count into
 one process-wide registry reference (:func:`set_registry`), installed by
 the ``ExperimentBuilder`` that owns the run's telemetry (the last
 installer wins: one live run per process). Counters are no-ops until a
 registry is installed.
-
-Not ported yet (ROADMAP.md, Queue 1: pod fault domain (item 8b)): the
-pod fault domain (``resilience/cluster.py``, ``elastic.py``, exit 73).
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ EXIT_PREEMPTED = 75
 # me" — distinct from EXIT_PREEMPTED so a scheduler can tell a clean
 # preemption from a hang kill.
 EXIT_HUNG = 74
+# Exit code for "a pod peer died or stalled and stranded our collectives;
+# peer_lost forensics written, restart the WHOLE job" — distinct from
+# EXIT_HUNG so a scheduler restarts every rank from the consensus
+# checkpoint instead of resubmitting one rank into a pod that no longer
+# exists.
+EXIT_PEER_LOST = 73
 
 _registry: Optional[Any] = None  # duck-typed telemetry.MetricsRegistry
 
@@ -61,6 +68,8 @@ def counter_inc(name: str, amount: float = 1.0) -> None:
 
 from howtotrainyourmamlpytorch_tpu_torch.resilience.faults import (  # noqa: E402
     FaultPlan, FaultSpec)
+from howtotrainyourmamlpytorch_tpu_torch.resilience.cluster import (  # noqa: E402
+    ClusterFaultDomain, ClusterMonitor, HeartbeatLease)
 from howtotrainyourmamlpytorch_tpu_torch.resilience.flightrec import (  # noqa: E402
     FlightRecorder, write_crash_bundle)
 from howtotrainyourmamlpytorch_tpu_torch.resilience.guard import (  # noqa: E402
@@ -70,8 +79,8 @@ from howtotrainyourmamlpytorch_tpu_torch.resilience.retry import (  # noqa: E402
 from howtotrainyourmamlpytorch_tpu_torch.resilience.watchdog import (  # noqa: E402
     ProgressBeacon, Watchdog)
 
-__all__ = ["EXIT_HUNG", "EXIT_PREEMPTED", "DivergenceGuard", "FaultPlan",
-           "FaultSpec", "FlightRecorder", "ProgressBeacon", "Watchdog",
-           "backoff_delay", "counter_inc", "get_registry", "retry_io",
-           "set_registry",
-           "write_crash_bundle"]
+__all__ = ["EXIT_HUNG", "EXIT_PEER_LOST", "EXIT_PREEMPTED",
+           "ClusterFaultDomain", "ClusterMonitor", "DivergenceGuard",
+           "FaultPlan", "FaultSpec", "FlightRecorder", "HeartbeatLease",
+           "ProgressBeacon", "Watchdog", "backoff_delay", "counter_inc",
+           "get_registry", "retry_io", "set_registry", "write_crash_bundle"]

@@ -23,9 +23,10 @@ Two addressing modes, one per kind (the sites choose, not the spec):
 Every site lives in host-side Python between steps; with no plan
 installed :func:`maybe_fire` is one ``None`` check. ``hang_collective``
 fires inside a host-level collective (``parallel/multihost.py §
-_collective``, call-counted). ``kill_peer`` needs the pod fault domain
-(ROADMAP.md, Queue 1: item 8b): a plan naming it raises
-``NotImplementedError`` rather than parse and never fire.
+_collective``, call-counted). ``kill_peer`` SIGKILLs this rank at a
+train iteration (the loop's sync point, before the stop-decision
+collective), as a pod's surviving peers experience a lost host: the pod
+fault domain (``resilience/cluster.py``) must name it and exit 73.
 """
 
 from __future__ import annotations
@@ -59,10 +60,6 @@ KINDS = (
     "kill_peer",        # SIGKILL of this host at a train iteration, as
                         # the surviving peers of a pod experience it
 )
-
-# Kinds whose site the port does not have yet: a pod peer's death is
-# the pod fault domain's to detect.
-UNPORTED_KINDS = {"kill_peer": "a pod peer"}
 
 # How long a hang_* fault sleeps (seconds): long enough to overrun any
 # sane watchdog deadline (the watchdog's os._exit ends it), but bounded,
@@ -133,12 +130,6 @@ class FaultPlan:
 
     def __init__(self, specs: Sequence[FaultSpec]):
         self.specs: Tuple[FaultSpec, ...] = tuple(specs)
-        for s in self.specs:
-            if s.kind in UNPORTED_KINDS:
-                raise NotImplementedError(
-                    f"fault kind {s.kind!r} needs {UNPORTED_KINDS[s.kind]}"
-                    f", which the port does not have yet (ROADMAP.md, "
-                    f"Queue 1: pod fault domain (item 8b))")
         self._calls: Dict[str, int] = {}
         self._lock = threading.Lock()
         self.fired: List[Tuple[str, int]] = []

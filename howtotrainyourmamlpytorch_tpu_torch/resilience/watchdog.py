@@ -1,6 +1,5 @@
 """Watchdog: hang detection via progress beacons and per-phase deadlines
-(the port's copy of the JAX package's ``resilience/watchdog.py``, without
-the pod fault domain's hook).
+(the port's copy of the JAX package's ``resilience/watchdog.py``).
 
 Every long-running layer stamps a named phase on a process-wide
 :class:`ProgressBeacon` (``step``, ``feed``, ``compile``,
@@ -12,7 +11,10 @@ budget so a first call's build does not trip the step deadline). On a
 missed deadline the watchdog dumps all-thread stacks and the flight ring
 into a crash bundle (:func:`~.flightrec.write_crash_bundle`), flushes the
 telemetry registry, and exits ``resilience.EXIT_HUNG`` (74) so a
-scheduler resubmits into the resume path.
+scheduler resubmits into the resume path. With the pod fault domain
+(``cluster=``, ``resilience/cluster.py``) the poll loop also keeps this
+rank's heartbeat lease fresh, and a ``collective`` trip past the cluster
+budget goes to its attributed peer-lost exit (73) instead.
 
 On the card the host runs ahead of the device, so a wedged kernel is
 seen only where the host waits for it: the step's loss fetch every
@@ -167,7 +169,8 @@ class Watchdog:
                  prom_path: Optional[str] = None,
                  poll_interval_s: float = 0.0,
                  on_trip: Optional[Callable[[Dict[str, Any]], None]] = None,
-                 process_index: int = 0):
+                 process_index: int = 0,
+                 cluster: Optional[Any] = None):
         self.beacon = beacon
         self.deadlines = {k: float(v) for k, v in deadlines.items()}
         self.bundle_dir = bundle_dir
@@ -176,6 +179,12 @@ class Watchdog:
         self.prom_path = prom_path
         self.on_trip = on_trip
         self.process_index = int(process_index)
+        # Pod fault domain (resilience/cluster.py): the poll loop keeps
+        # this rank's heartbeat lease fresh (the thread proves the
+        # PROCESS is alive while the main thread is blocked inside a
+        # collective), and a tripped collective deadline that overran
+        # the CLUSTER budget goes to its attributed peer-lost path.
+        self.cluster = cluster
         enabled = [v for v in self.deadlines.values() if v > 0]
         self.enabled = bool(enabled)
         # Auto poll: fast enough to detect the tightest deadline with
@@ -231,6 +240,12 @@ class Watchdog:
 
     def _run(self) -> None:
         while not self._stop.wait(self.poll_interval_s):
+            if self.cluster is not None:
+                # Liveness, not progress: the lease stays fresh while
+                # this rank waits in a collective, so a dead peer's
+                # aging lease stands out against the (equally blocked)
+                # survivors'. Rate-limited by the lease; fail-soft.
+                self.cluster.heartbeat()
             info = self.check()
             if info is not None:
                 self.trip(info)
@@ -258,6 +273,12 @@ class Watchdog:
         and trace are host memory and files."""
         from howtotrainyourmamlpytorch_tpu_torch import resilience
         self.tripped = info
+        if self.cluster is not None and self.cluster.owns_trip(info):
+            # A collective past the CLUSTER deadline: the pod fault
+            # domain names the suspect hosts from the lease ages and
+            # exits EXIT_PEER_LOST instead of EXIT_HUNG.
+            self.cluster.trip_peer_lost(info)
+            return
         flightrec.record(TRIP_EVENT, **info)
         if self.registry is not None:
             try:

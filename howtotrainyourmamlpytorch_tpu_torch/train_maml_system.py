@@ -21,6 +21,18 @@ shard of the (dcn, tasks) mesh:
     torchrun --nproc_per_node 2 -m \\
         howtotrainyourmamlpytorch_tpu_torch.train_maml_system \\
         --name_of_args_json_file <json> --mesh_shape 1 2
+
+The pod fault domain (``cluster_collective_timeout_s`` > 0) and
+``elastic_mode`` need a launcher that leaves the survivors running when a
+rank dies: torchrun's agent sends SIGTERM to the other workers (which
+then save and exit 75, racing the attributed exit 73), and a survivor
+that ``exec``s itself confuses it. Start the ranks with the ``env://``
+variables set yourself (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), as
+``scripts/torch_chaos_pod.py`` does. With ``elastic_mode=1`` a process
+launched with its original env while a degraded survivor group is live
+is a backfill: it waits to rejoin through the roster file before it
+joins any process group.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -37,7 +50,8 @@ from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.device import DeviceLike
 from howtotrainyourmamlpytorch_tpu_torch.experiment import ExperimentBuilder
 from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
-from howtotrainyourmamlpytorch_tpu_torch.resilience import EXIT_PREEMPTED
+from howtotrainyourmamlpytorch_tpu_torch.resilience import (EXIT_PREEMPTED,
+                                                            cluster, elastic)
 from howtotrainyourmamlpytorch_tpu_torch.utils.dataset_tools import (
     maybe_unzip_dataset)
 
@@ -114,6 +128,43 @@ def get_args(argv: Optional[List[str]] = None) -> MAMLConfig:
     return MAMLConfig.from_dict(values)
 
 
+def _elastic_gate(cfg: MAMLConfig) -> None:
+    """The elastic start-up gate, before the process group: a process
+    launched with the ORIGINAL env (no ``MAML_ELASTIC_GENERATION``) while
+    a degraded survivor group is LIVE is a backfill. It rejoins through
+    the roster file (adopting the re-expanded generation's env in
+    place) instead of standing up a rival full-geometry group. A
+    whole-job restart over a stale roster retires it, so the lost-host
+    budget restarts at zero. The original host index is ``RANK``."""
+    lease_dir = os.path.join(cfg.experiment_root, cfg.experiment_name,
+                             cluster.LEASE_DIR)
+    if elastic.parse_roster_env() is not None:
+        return  # already resharded: the roster env says who we are
+    doc = elastic.read_roster(lease_dir)
+    self_host = int(os.environ.get("RANK", "0"))
+    stalled = cluster.stalled_after(cfg)
+    n_ranks = len((doc or {}).get("roster", [])) or 1
+    ages = cluster.read_lease_ages(lease_dir, expected_hosts=n_ranks)
+    verdict = elastic.startup_disposition(self_host, doc, ages, stalled)
+    if verdict == "backfill_wait":
+        print(f"elastic: host {self_host} is a backfill for a live "
+              f"degraded group (roster {(doc or {}).get('roster')}); "
+              f"waiting to rejoin", flush=True)
+        joined = elastic.backfill_wait(lease_dir, self_host, stalled)
+        if joined is not None:
+            # The process group is not up yet: adopt the re-expanded
+            # generation's env in place, no exec needed.
+            elastic.adopt_env(joined, self_host)
+            print(f"elastic: rejoining at generation "
+                  f"{joined['generation']}", flush=True)
+        else:
+            print("elastic: degraded group is gone; launching at the "
+                  "original geometry", flush=True)
+            elastic.archive_roster(lease_dir)
+    elif doc is not None:
+        elastic.archive_roster(lease_dir)
+
+
 def main(argv: Optional[List[str]] = None, device: DeviceLike = None,
          builders: Optional[list] = None) -> int:
     """Run the CLI on ``device`` (the card by default). ``builders``, when
@@ -127,9 +178,12 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None,
         sys.argv[1:] if argv is None else argv)
     device = device if device is not None else known.device
     cfg = get_args(argv)
+    if cfg.elastic_mode:
+        _elastic_gate(cfg)
     # Before the builder: a torchrun rank joins the process group first.
     joins = not multihost.is_initialized()
-    multihost.initialize_distributed(device)
+    multihost.initialize_distributed(
+        device, timeout_s=cluster.process_group_timeout(cfg))
     try:
         print(f"experiment: {cfg.experiment_name} | dataset: "
               f"{cfg.dataset_name} | {cfg.num_classes_per_set}-way "

@@ -181,7 +181,7 @@ class CheckpointManager:
     def _sweep_stale(self) -> None:
         """GC a killed writer's ``*.tmp`` files and pending manifest
         records (``*.corrupt`` quarantine leftovers stay for forensics)."""
-        swept = manifest_mod.sweep(self.manifest)
+        swept = manifest_mod.sweep(self.manifest, remove_corrupt=False)
         n = len(swept["deleted_files"]) + len(swept["dropped_records"])
         if n:
             counter_inc("ckpt/gc_deletes", n)

@@ -21,12 +21,18 @@ its artifact contract, and no JAX:
 5. **hang** — a subprocess with ``hang_feed@5`` and a tight feed
    deadline: the watchdog trips, writes ``logs/crash_bundle`` and exits
    74; a restart resumes from the last committed entry and finishes.
+6. **peer_kill** — shells out to ``scripts/torch_chaos_pod.py --phases
+   peer_kill,restart`` at the same geometry: a SIGKILLed rank, the
+   survivor's attributed exit 73 naming it, then the consensus restart.
+   A box that cannot run two ranks (one core, or no localhost sockets)
+   skips it with the reason recorded; so does a caller that runs the pod
+   harness itself (``pod_legs=False``).
 
 The ckpt_kill and hang restarts replay the same iterations from a
 committed checkpoint under the entry point's deterministic numerics
 policy, so their final weights and Adam state must be bitwise the
-baseline's; the artifact names any leaf that differs. ``peer_kill`` and
-``warm_restart`` are reported skipped with their reasons.
+baseline's; the artifact names any leaf that differs. ``warm_restart``
+is reported skipped with its reason.
 
 Geometry: ``--quick`` runs the JAX harness's tiny config (2 epochs x 4
 iterations, 10x10x1, 2 stages of 4 filters); otherwise the flagship JSON
@@ -36,7 +42,7 @@ stdout line is ``{"metric": "chaos_recovery", "status": "recovered" |
 "failed", ...}``; exit 0 iff recovered.
 
 Usage:
-    python scripts/torch_chaos_run.py --quick --device cpu   # ~30 s here
+    python scripts/torch_chaos_run.py --quick --device cpu   # ~60 s here
     python scripts/torch_chaos_run.py --device cuda          # flagship
 """
 
@@ -91,9 +97,8 @@ HANG_DEADLINES = dict(watchdog_feed_timeout_s=6.0,
 # Bounds an injected hang if the watchdog fails to trip: the child then
 # finishes and the artifact shows the wrong exit code.
 HANG_SECONDS = "120"
+POD_SCRIPT = os.path.join(_REPO, "scripts", "torch_chaos_pod.py")
 SKIPPED = {
-    "peer_kill": "needs the pod fault domain to detect a dead peer "
-                 "(ROADMAP.md, Queue 1: pod fault domain (item 8b))",
     "warm_restart": "eager PyTorch compiles nothing, so a restart has no "
                     "executables to load (ROADMAP.md, Queue 1: "
                     "AOT/compile-cache slice)",
@@ -232,14 +237,69 @@ def warn_precedes_rewind(events: list):
     return warns, before
 
 
+def run_peer_kill_phase(out: str, device: str, quick: bool) -> dict:
+    """The pod fault domain's legs, by shelling out to
+    ``scripts/torch_chaos_pod.py --phases peer_kill,restart`` at this
+    harness's geometry (the flagship's length cuts unless ``quick``),
+    when this box can run two ranks; otherwise a recorded skip."""
+    import socket
+    reason = None
+    if (os.cpu_count() or 1) < 2:
+        reason = ("single-core box: a 2-rank training pair would "
+                  "serialize past the harness timeouts")
+    else:
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+        except OSError:
+            reason = "cannot bind localhost sockets in this sandbox"
+    if reason:
+        return {"skipped": reason, "recovered": None}
+    cmd = [sys.executable, POD_SCRIPT, "--out", os.path.join(out, "pod"),
+           "--phases", "peer_kill,restart", "--device", device]
+    if quick:
+        cmd.append("--quick")
+    else:
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, "pod_config.json")
+        with open(path, "w") as f:
+            json.dump(make_cfg(out, "pod", False).to_dict(), f)
+        cmd += ["--config", path]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=3000,
+                          env={k: v for k, v in os.environ.items()
+                               if k != "MAML_FAULTS"})
+    artifact = {}
+    for line in proc.stdout.strip().splitlines()[::-1]:
+        try:
+            row = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if row.get("metric") == "pod_chaos":
+            artifact = row
+            break
+    return {
+        "skipped": None,
+        "recovered": artifact.get("status") == "recovered",
+        "exit_code": proc.returncode,
+        "survivor_exit_code": artifact.get("peer_kill_survivor_exit_code"),
+        "suspect_hosts": artifact.get("peer_kill_suspect_hosts"),
+        "resumed_lines": artifact.get("restart_resumed_lines"),
+        "consensus_ok": artifact.get("restart_consensus_ok"),
+        "stderr_tail": (proc.stderr[-800:] if proc.returncode != 0
+                        else None),
+    }
+
+
 def counter_sum(phases, key) -> int:
     return int(sum(float(p["counters"].get(key) or 0) for p in phases))
 
 
 def chaos(out: str, device: str, quick: bool, tolerance: float = 0.4,
-          log=print) -> dict:
+          log=print, pod_legs: bool = True) -> dict:
     """Every phase; returns the artifact (plus, under ``"_phases"``, the
-    in-process phases' records for callers that check more)."""
+    in-process phases' records for callers that check more).
+    ``pod_legs=False`` skips the peer_kill phase, for a caller that runs
+    ``scripts/torch_chaos_pod.py`` itself."""
     from howtotrainyourmamlpytorch_tpu_torch.resilience import EXIT_HUNG
 
     def cfg(name, **kw):
@@ -284,6 +344,14 @@ def chaos(out: str, device: str, quick: bool, tolerance: float = 0.4,
     announce("hang_restart")
     hang_restart = run_phase(cfg("chaos_hang", continue_from_epoch="latest"),
                              device)
+    announce("peer_kill")
+    peer_kill = (run_peer_kill_phase(out, device, quick) if pod_legs else
+                 {"skipped": "pod_legs=False: the caller runs "
+                             "scripts/torch_chaos_pod.py itself",
+                  "recovered": None})
+    if peer_kill["skipped"]:
+        log(json.dumps({"phase": "peer_kill", "status": "skipped",
+                        "reason": peer_kill["skipped"]}))
     for phase, reason in SKIPPED.items():
         log(json.dumps({"phase": phase, "status": "skipped",
                         "reason": reason}))
@@ -324,13 +392,16 @@ def chaos(out: str, device: str, quick: bool, tolerance: float = 0.4,
         and hang_committed["committed_iter"] == hang_restart["start_iter"]
         and acc(hang_restart) is not None and not hang_diff)
     chaos_delta = delta(restart)
+    peer_kill_ok = (peer_kill["skipped"] is not None
+                    or bool(peer_kill["recovered"]))
     recovered = bool(
         preempted and rewinds >= 1 and io_retries >= 1
         and warn_before_rewind and chaos_delta is not None
         and chaos_delta <= tolerance
-        and ckpt_kill_recovered and hang_recovered)
+        and ckpt_kill_recovered and hang_recovered and peer_kill_ok)
     recoveries = (int(preempted) + int(rewinds >= 1) + int(io_retries >= 1)
-                  + int(ckpt_kill_recovered) + int(hang_recovered))
+                  + int(ckpt_kill_recovered) + int(hang_recovered)
+                  + int(bool(peer_kill["recovered"])))
 
     def tail(proc, ok_code):
         return proc.stderr[-800:] if proc.returncode != ok_code else None
@@ -385,7 +456,13 @@ def chaos(out: str, device: str, quick: bool, tolerance: float = 0.4,
         "hang_stderr_tail": tail(hang_proc, EXIT_HUNG),
         "hang_seconds": hang_exit_ts - t0,
         "hang_recovered": hang_recovered,
-        "peer_kill_skipped": SKIPPED["peer_kill"],
+        "peer_kill_skipped": peer_kill["skipped"],
+        "peer_kill_recovered": peer_kill["recovered"],
+        "peer_kill_survivor_exit_code": peer_kill.get("survivor_exit_code"),
+        "peer_kill_suspect_hosts": peer_kill.get("suspect_hosts"),
+        "peer_kill_resumed_lines": peer_kill.get("resumed_lines"),
+        "peer_kill_consensus_ok": peer_kill.get("consensus_ok"),
+        "peer_kill_stderr_tail": peer_kill.get("stderr_tail"),
         "warm_restart_skipped": SKIPPED["warm_restart"],
         "tolerance": tolerance,
         "_phases": {"baseline": baseline, "faulted": faulted,

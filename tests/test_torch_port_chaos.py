@@ -2,8 +2,10 @@
 
 ``scripts/torch_chaos_run.py --quick --device cpu`` (the tiny config, every
 phase: baseline, faulted ``io_write@1;nan_loss@5;kill@6``, restart,
-ckpt_kill, hang) must end ``"status": "recovered"`` with ``peer_kill`` and
-``warm_restart`` reported skipped with their reasons, and its hang phase's
+ckpt_kill, hang, and peer_kill through ``scripts/torch_chaos_pod.py``)
+must end ``"status": "recovered"`` with ``warm_restart`` reported skipped
+with its reason, the peer_kill leg's survivor exiting 73 naming host 1,
+and its hang phase's
 run — ended by the watchdog, then restarted — must read in the JAX
 package's ``scripts/telemetry_report.py`` with a watchdog section of one
 trip. The restarts are held bitwise to the baseline by the script itself
@@ -51,8 +53,11 @@ def test_quick_chaos_run_recovers(chaos):
     assert art["hang_restart_differing_leaves"] == []
     skipped = [json.loads(line) for line in lines
                if '"status": "skipped"' in line]
-    assert {s["phase"] for s in skipped} == {"peer_kill", "warm_restart"}
-    assert "item 8b" in art["peer_kill_skipped"]
+    assert {s["phase"] for s in skipped} == {"warm_restart"}
+    assert art["peer_kill_skipped"] is None and art["peer_kill_recovered"]
+    assert art["peer_kill_survivor_exit_code"] == 73
+    assert art["peer_kill_suspect_hosts"] == [1]
+    assert art["peer_kill_consensus_ok"]
     assert "AOT/compile-cache slice" in art["warm_restart_skipped"]
 
 

@@ -417,14 +417,20 @@ def test_get_args_rejects_what_jax_rejects(argv):
     dict(cluster_collective_timeout_s=5.0, elastic_mode=1)],
     ids=lambda k: next(iter(k)))
 def test_unported_knob_raises(knob, tmp_path):
-    """Knobs of unported slices raise naming their ROADMAP item (the pod
-    fault domain's name item 8b). The mesh is ported: a mesh_shape that
-    one process cannot realize raises under require_mesh=1, with the JAX
-    package's message."""
+    """Knobs of unported slices raise naming their ROADMAP item. The mesh
+    is ported: a mesh_shape that one process cannot realize raises under
+    require_mesh=1, with the JAX package's message. The pod fault domain
+    is ported too: its knobs build (and ``refuse_unported_knobs`` passes
+    them), as the JAX package's builder does."""
+    if "cluster_collective_timeout_s" in knob:
+        cfg = MAMLConfig(**_kw(tmp_path, **knob))
+        experiment.refuse_unported_knobs(cfg)
+        builder = ExperimentBuilder(cfg, device="cpu")
+        assert builder.cfg.cluster_collective_timeout_s == 5.0
+        assert builder.cfg.elastic_mode == knob.get("elastic_mode", 0)
+        return
     if "mesh_shape" in knob:
         err, match = ValueError, "only 1 are visible and require_mesh=1"
-    elif "cluster_collective_timeout_s" in knob:
-        err, match = NotImplementedError, "ROADMAP.*item 8b"
     else:
         err, match = NotImplementedError, "ROADMAP"
     with pytest.raises(err, match=match):

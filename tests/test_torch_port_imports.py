@@ -39,10 +39,12 @@ PORT_FILES = sorted(
 ) + ["chip_smoke.py"] + sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
-PORT_SCRIPTS = ("torch_chaos_fleet", "torch_chaos_run", "torch_dataset_pack",
+PORT_SCRIPTS = ("torch_chaos_fleet", "torch_chaos_pod", "torch_chaos_run",
+                "torch_ckpt_admin", "torch_dataset_pack",
                 "torch_fleet_bench", "torch_generate_scripts",
-                "torch_ops_console", "torch_serve_bench",
-                "torch_serve_profile", "torch_slo_report", "torch_telemetry_report",
+                "torch_ops_console", "torch_perf_report",
+                "torch_serve_bench", "torch_serve_profile",
+                "torch_slo_report", "torch_telemetry_report",
                 "torch_trace_export", "torch_traffic_replay")
 # A dotted JAX-package module name (or the bare package name), and the
 # aliases of the JAX package's file-path loaders.
@@ -145,7 +147,8 @@ def test_every_port_module_imports_with_jax_blocked():
     mods = set(out.stdout.split())
     assert len(mods) >= 30
     assert {f"howtotrainyourmamlpytorch_tpu_torch.resilience.{m}"
-            for m in ("faults", "flightrec", "watchdog")} <= mods
+            for m in ("faults", "flightrec", "watchdog", "cluster",
+                      "elastic")} <= mods
     assert {f"howtotrainyourmamlpytorch_tpu_torch.{m}" for m in (
         "parallel", "parallel.mesh", "parallel.multihost",
         "utils.script_gen")} <= mods

@@ -10,8 +10,8 @@ package's, on the same inputs, on the CPU.
 * The flight ring's order and bound, the crash bundle's file names and
   ``crash.json`` keys, and the bundle's ``trace.json`` (byte-equal to
   the JAX package's for the same ring): equal.
-* A real-thread trip with ``on_trip``; ``kill_peer`` raises
-  ``NotImplementedError`` naming the pod fault domain (item 8b), and
+* A real-thread trip with ``on_trip``; ``kill_peer`` parses and fires
+  like the JAX package's (the pod fault domain's kind), and
   ``hang_collective`` fires inside a host-level collective; the
   kernel's first-use ``nvcc`` build runs under ``compile``,
   so a build longer than a tight step deadline does not trip.
@@ -86,10 +86,9 @@ def test_bad_specs_are_rejected_like_jax(spec):
 @pytest.mark.parametrize("kind", ["hang_collective", "kill_peer"])
 def test_unported_kinds_raise_naming_the_mesh_slice(kind, tmp_path,
                                                     monkeypatch):
-    """``kill_peer`` has no site without the pod fault domain: a plan
-    naming it raises instead of parsing and never firing, naming item
-    8b; the config still validates it, as the JAX package's does, and the
-    builder refuses it. ``hang_collective`` is ported with the mesh: it
+    """Both kinds are ported now. ``kill_peer`` (the pod fault domain's)
+    parses and fires at its step like the JAX package's plan, and the
+    builder takes a plan naming it. ``hang_collective`` (the mesh's)
     parses and fires inside a host-level collective, call-counted, under
     the ``collective`` watchdog phase."""
     from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
@@ -110,14 +109,21 @@ def test_unported_kinds_raise_naming_the_mesh_slice(kind, tmp_path,
             faults.configure("")
         assert phases == ["collective"]
         return
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        faults.FaultPlan.parse(spec)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        faults.configure(spec)
-    assert faults.get_plan() is None
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ExperimentBuilder(MAMLConfig(experiment_root=str(tmp_path),
-                                     fault_spec=spec), device="cpu")
+    ours, ref = faults.FaultPlan.parse(spec), jfaults.FaultPlan.parse(spec)
+    calls = [("kill_peer", s) for s in (2, 3, 3, 4)] + [("io_write", None)]
+    assert ([ours.maybe_fire(k, s) for k, s in calls]
+            == [ref.maybe_fire(k, s) for k, s in calls]
+            == [False, True, False, False, True])
+    assert ours.fired == ref.fired
+    try:
+        builder = ExperimentBuilder(MAMLConfig(
+            experiment_root=str(tmp_path), fault_spec=spec), device="cpu")
+        assert faults.get_plan() is not None
+        assert [s.kind for s in faults.get_plan().specs] == [
+            "io_write", "kill_peer"]
+        assert builder.cfg.fault_spec == spec
+    finally:
+        faults.configure("")
 
 
 def test_maybe_fire_counts_and_records(monkeypatch):
