@@ -29,7 +29,12 @@ failure:
    port) after warm-up: wall (CUDA events around one call, median) and
    device (the profiler's kernel time per call, which must be one kernel
    for the BN kernel), at the serving, training and eval shapes of both
-   conv backbones.
+   conv backbones. Then one call at S0 and one at T0 captured into a
+   CUDA graph (``parallel/aot.py § GraphExec``; the cooperative launch
+   under stream capture) and replayed: bitwise the eager call, the
+   launch counter as derived (the capture's eager warm-up counts, the
+   capture does not, each replay adds its one launch), the eager call's
+   and the replay's wall times side by side.
 3. Serve at the flagship's full width through ``ServingEngine``
    (experiment_config/mini-imagenet_maml++_5-way_5-shot_DA_b12.json with
    bn_backend='pallas', seeded random weights): 16 uint8 requests plus a
@@ -221,6 +226,37 @@ failure:
    ends bitwise phase 5's final state with the same launches, its lease
    and heartbeat lease ages written. Prints the trip latency, the reshard
    wall, the consensus-resume wall and each rank's step ms.
+14. The warm start (``warm_start``; ``parallel/aot.py``), at the
+   flagship's full width with both knobs on fresh directories: (a) an
+   eager engine, a cold engine on a fresh store (misses, captured and
+   recorded) and a second engine on that store (hits, no misses) answer
+   the same 16 requests under deterministic cuDNN: logits bitwise, the
+   BN kernel's launches 20 per adapt run and 4 per predict run, captures'
+   warm-ups and replays included; (b) four train steps (epochs 0, 0, 41,
+   41: two ``opt.count`` values per phase key) eagerly and through the
+   phase keys' CUDA graphs from one state: state, Adam moments and
+   metrics bitwise (else printed and held to ``F32_FLOORS``), one eval
+   batch bitwise, launches as derived, step times and one profiled step
+   of each printed (nothing claimed from them); (c) the chaos harness's
+   warm-restart leg (``scripts/torch_chaos_run.py``): the prewarm script
+   as a child (started beside (a) and (b), with ``--serve``), then the
+   CLI on the warm store as a child, phase 5's length cuts: exit 0, hits
+   > 0, no miss, no ``nvcc`` run; a cold CLI child beside (a) and (b)
+   gives the cold time to first step.
+
+Phases 6, 8 and 14 need nothing of the others: each runs in a child
+process (``chip_smoke.py --phase-child <name> <out>``) beside others, for
+run time (``PHASE_SCHEDULE``: 6 beside 3-5 and 7; 8 beside 9, 10 and
+12; 14 beside 9 and 10); phases 2, 11 and 13 run beside nothing.
+
+Every child process starts in a session of its own through one helper
+(``_spawn``, ``_finish``, ``_child``), which ends the session (SIGTERM,
+then SIGKILL after ``TERM_GRACE_S``) and waits on it on return, error or
+time-out; the harnesses reap their own children, SIGTERM included
+(``utils/reaper.py``). Before its last lines the script prints the
+processes it started that are still alive and the compute processes on
+the card other than itself, and fails naming them if either list is not
+empty.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -232,6 +268,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -318,12 +355,179 @@ LAYER_NORM_ARGS = ["--norm_layer", "layer_norm", "--bn_backend", "composite",
                    "1"]
 
 
+# Every process this script starts, as (tag, Popen), each the leader of a
+# session of its own (_spawn); main() lists those still alive at the end.
+_STARTED: list = []
+# Seconds a child has to reap its own children after SIGTERM before its
+# session is killed.
+TERM_GRACE_S = 10.0
+
+
+def _spawn(tag: str, cmd, *, env=None, stdout=subprocess.PIPE,
+           stderr=subprocess.PIPE, text: bool = True) -> subprocess.Popen:
+    """Start ``cmd`` from the repo's root in a session of its own (so its
+    whole process group can be reaped, grandchildren included), and
+    remember it. Every child of this script starts here."""
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=stdout,
+                            stderr=stderr, text=text,
+                            start_new_session=True)
+    _STARTED.append((tag, proc))
+    return proc
+
+
+def _reap(proc: subprocess.Popen) -> None:
+    """End ``proc``'s session: SIGTERM while the leader runs (a harness
+    reaps its own children on it), SIGKILL to what is left after
+    ``TERM_GRACE_S``, then wait on the leader."""
+    def kill(sig) -> None:
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(proc.pid, sig)
+    if proc.poll() is None:
+        kill(signal.SIGTERM)
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            proc.wait(timeout=TERM_GRACE_S)
+    kill(signal.SIGKILL)
+    proc.wait()
+
+
+def _finish(tag: str, proc: subprocess.Popen, timeout: float
+            ) -> subprocess.CompletedProcess:
+    """Wait for a :func:`_spawn` child (output read), then reap its
+    session, whether it exited, raised or outlived ``timeout`` (then
+    ``TimeoutError`` with its output's tail). A child that exited while
+    processes of its session still hold its output pipes has them
+    killed (printed), not waited for."""
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            try:
+                out, err = proc.communicate(timeout=1.0)
+                break
+            except subprocess.TimeoutExpired:
+                if proc.poll() is not None:
+                    left = _pgrp_members({proc.pid})
+                    print(f"chip_smoke: {tag} exited leaving {left}; "
+                          f"killed", flush=True)
+                    _reap(proc)
+                    out, err = proc.communicate(timeout=10)
+                    break
+                if time.monotonic() > deadline:
+                    _reap(proc)
+                    out, err = proc.communicate(timeout=10)
+                    raise TimeoutError(
+                        f"{tag}: no exit within {timeout} s; its session "
+                        f"was killed. Output tail: {(out or '')[-2000:]}"
+                        f"{(err or '')[-2000:]}")
+    finally:
+        _reap(proc)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _child(tag: str, cmd, timeout: float, env=None
+           ) -> subprocess.CompletedProcess:
+    """Run ``cmd`` to its end as a child of its own session
+    (:func:`_spawn`, :func:`_finish`); stdout and stderr captured."""
+    return _finish(tag, _spawn(tag, cmd, env=env), timeout)
+
+
+def _reap_all() -> None:
+    """Reap every child session this script started (a phase that
+    raised may leave one running)."""
+    for _, proc in _STARTED:
+        _reap(proc)
+
+
+def _processes() -> list:
+    """``(pid, ppid, pgid, command)`` of every live process (read from
+    /proc), zombies left out."""
+    found = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        fields = stat[stat.rfind(")") + 2:].split()
+        if fields[0] != "Z":
+            found.append((int(name), int(fields[1]), int(fields[2]),
+                          cmd.strip()[:120]))
+    return found
+
+
+def _pgrp_members(pgids) -> list:
+    """``(pid, command)`` of the live processes in the groups ``pgids``."""
+    return [(pid, cmd) for pid, _, pgid, cmd in _processes()
+            if pgid in pgids]
+
+
+def _survivors() -> list:
+    """The processes this script started that are still alive, as
+    ``(pid, command)``: every member of a :func:`_spawn` child's session,
+    and every descendant of this process (a library's worker, a
+    harness's child run in process)."""
+    procs = _processes()
+    groups = {proc.pid for _, proc in _STARTED}
+    kids: dict = {}
+    for pid, ppid, _, _ in procs:
+        kids.setdefault(ppid, []).append(pid)
+    mine, todo = set(), [os.getpid()]
+    while todo:
+        for pid in kids.get(todo.pop(), []):
+            if pid not in mine:
+                mine.add(pid)
+                todo.append(pid)
+    return [(pid, cmd) for pid, _, pgid, cmd in procs
+            if (pgid in groups or pid in mine) and pid != os.getpid()]
+
+
+def _own_pids() -> set:
+    """This process's pid in every PID namespace it is in (a card's
+    process list may show the host's)."""
+    pids = {os.getpid()}
+    with contextlib.suppress(OSError):
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("NSpid:"):
+                    pids.update(int(v) for v in line.split()[1:])
+    return pids
+
+
+def _card_processes() -> list:
+    """Compute processes on the card other than this one, as
+    ``nvidia-smi --query-compute-apps=pid`` lists them."""
+    out = _child("nvidia-smi compute-apps",
+                 ["nvidia-smi", "--query-compute-apps=pid,process_name,"
+                  "used_memory", "--format=csv,noheader"], timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi --query-compute-apps failed: "
+                           f"{out.stderr.strip()}")
+    rows = [[v.strip() for v in line.split(",")]
+            for line in out.stdout.strip().splitlines() if line.strip()]
+    mine = _own_pids()
+    others = [r for r in rows if not (r[0].isdigit() and int(r[0]) in mine)]
+    if rows and len(others) == len(rows):
+        # No row carries this process's pid: the card reports pids of
+        # another PID namespace (in a container, every row may read as
+        # pid 1). This process holds a context, so one row is its own:
+        # the one holding the most memory is taken as it.
+        mib = lambda r: float((r[2].split() or ["0"])[0]) if len(r) > 2 \
+            else 0.0
+        others.remove(max(rows, key=mib))
+    print(f"chip_smoke: compute apps on the card {rows}; this process "
+          f"{sorted(mine)}", flush=True)
+    return others
+
+
 def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
+    out = _child("nvidia-smi", ["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
 
 
 def _bandwidth(name: str) -> float:
@@ -738,6 +942,7 @@ def check_bn_act(device_name: str, card: str) -> dict:
     print(f"bn_act timing: {len(retakes)} profiler window(s) retaken for "
           f"lost device records over {2 * len(rows)} device-time "
           f"measurements {json.dumps(retakes)} ({card})", flush=True)
+    graphs = _bn_act_graphs(card)
     top = stages[0]
     return {"name": "bn_act", "route": "cuda",
             "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/bn_act.cu",
@@ -748,7 +953,67 @@ def check_bn_act(device_name: str, card: str) -> dict:
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "library_device_ms": top["library_device_ms"],
             "shape": top["shape"], "dtype": "bfloat16", "stages": stages,
-            "device_window_retakes": len(retakes)}
+            "device_window_retakes": len(retakes), "graphs": graphs}
+
+
+GRAPH_REPLAYS = 3
+
+
+def _bn_act_graphs(card: str) -> dict:
+    """Phase 2's CUDA-graph check of the cooperative launch: one call at
+    S0 and one at T0 (bf16, slope 0) captured through
+    ``parallel/aot.py § GraphExec``, replayed ``GRAPH_REPLAYS`` times;
+    each replay bitwise the eager call, the count as derived (the
+    capture's eager warm-up 1, the capture 0, each replay 1); the
+    eager call's and the replay's wall times (CUDA events, median of
+    20) printed side by side."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import aot
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def call(x, gamma, beta):
+        with torch.no_grad():
+            return bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+
+    out = {}
+    for label, (r, p) in (("S0", SHAPES[0]), ("T0", TRAIN_SHAPES[0])):
+        x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
+             + 0.3).to(torch.bfloat16)
+        gamma = torch.rand(p, device="cuda", generator=gen) + 0.5
+        beta = torch.randn(p, device="cuda", generator=gen) * 0.1
+        want = call(x, gamma, beta)
+        before, captured = bn_act.launches, bn_act.captured
+        graph = aot.GraphExec(f"bn_act_{label}", call, (x, gamma, beta))
+        warm = bn_act.launches - before
+        got = [graph(x, gamma, beta) for _ in range(GRAPH_REPLAYS)]
+        torch.cuda.synchronize()
+        counted = bn_act.launches - before
+        bitwise = all(torch.equal(a, b) for g in got
+                      for a, b in zip(want, g))
+        if (not bitwise or warm != 1 or graph.launches != 1
+                or bn_act.captured - captured != 1
+                or counted != 1 + GRAPH_REPLAYS):
+            raise AssertionError(
+                f"bn_act graph {label} {r}x{p}: bitwise {bitwise}, "
+                f"warm-up launches {warm} (want 1), captured "
+                f"{graph.launches} (want 1), counted {counted} (want "
+                f"{1 + GRAPH_REPLAYS})")
+        eager_ms = _median_ms(lambda: call(x, gamma, beta))
+        replay_ms = _median_ms(graph.graph.replay)
+        out[label] = {"shape": [r, p], "eager_ms": eager_ms,
+                      "replay_ms": replay_ms,
+                      "capture_s": graph.capture_seconds}
+        print(f"bn_act graph {label} {r}x{p} bf16: the cooperative launch "
+              f"captured (capture {graph.capture_seconds:.3f} s), "
+              f"{GRAPH_REPLAYS} replays bitwise the eager call, launches "
+              f"counted {counted} = 1 warm-up + {GRAPH_REPLAYS} replays x "
+              f"{graph.launches}; wall eager {eager_ms:.4f} ms, replay "
+              f"{replay_ms:.4f} ms ({card})", flush=True)
+        del graph, x, want, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def _cosine(a, b) -> float:
@@ -2157,10 +2422,12 @@ TELEMETRY_ARGS = ["--dispatch_sync_every", "1",
                   "--health_metrics_every_n_steps", "1",
                   "--profile_every_n_steps", "2", "--profile_epoch", "1",
                   "--profile_num_steps", "1"]
-# Phase 7's telemetry runs: one, and up to two more when a sampled
-# window lost its first device records without counting them
-# (``_HeadDropped``).
+# Phase 7's telemetry runs: one, and up to two more when no sampled
+# window of a run came out whole (``_RecordsDropped``).
 TELEMETRY_RUNS = 3
+# Windows of the port's sampler taken for one trainer sample that lost
+# records, each on a step of the sample's phase card, until one is whole.
+SAMPLE_RETAKES = 4
 ALERT_RULES = {"rules": [
     {"name": "train_loss_reported", "type": "threshold",
      "metric": "train/train_loss", "op": ">", "value": 0.0,
@@ -2178,40 +2445,46 @@ def _expected_regions(name: str) -> set:
             "inner_msl_target_forward" if msl else "final_target_forward"}
 
 
-class _HeadDropped(AssertionError):
-    """A ``perf_profile`` row whose one defect is a missing label, with
-    every other check met (the step's BN-kernel records, fractions, MFU,
-    no loss counted): the tracer dropped the window's first records
-    without counting them (PERF.md § 7), and the run is taken again."""
+class _RecordsDropped(AssertionError):
+    """A ``perf_profile`` row whose one defect is records it lacks: it
+    counted records lost, or, with every other check met (fractions,
+    MFU, no BN-kernel record beyond the step's launches), a label of its
+    step or some of its BN-kernel records are missing. The CUDA tracer
+    drops device records together with their launch records, at random
+    and without counting them (PERF.md § 7): the window is taken again."""
 
 
 def _check_perf_row(r: dict, bn_per_step) -> None:
-    """One ``perf_profile`` row that lost no device records: fractions
-    summing to 1, every label of its step, the step's BN-kernel records
-    and an MFU in (0, 1]. Raises :class:`_HeadDropped` when a label is
-    all that is missing."""
+    """One ``perf_profile`` row: no records lost, fractions summing to 1,
+    every label of its step, the step's BN-kernel records and an MFU in
+    (0, 1]. Raises :class:`_RecordsDropped` when records are all that is
+    missing, AssertionError on any other defect."""
     total = (r["device_compute_frac"] + r["device_idle_frac"]
              + r["dispatch_gap_frac"])
     missing = _expected_regions(r["top_executable"]) - set(
         r["per_region_seconds"])
-    bn = r["per_family_kernels"].get("bn_act")
-    sound = (abs(total - 1) <= 1e-6 and bn == bn_per_step(
-        r["top_executable"]) and not r["device_records_lost"]
-        and r["mfu"] is not None and 0 < r["mfu"] <= 1)
-    if sound and not missing:
+    bn = r["per_family_kernels"].get("bn_act", 0)
+    want = bn_per_step(r["top_executable"])
+    said = (f"telemetry: perf row (fractions sum {total}, regions missing "
+            f"{missing}, bn_act records {bn} of {want}, records lost "
+            f"{r['device_records_lost']}) {r}")
+    if r["device_records_lost"]:
+        raise _RecordsDropped(said)
+    sound = (abs(total - 1) <= 1e-6 and bn <= want
+             and r["mfu"] is not None and 0 < r["mfu"] <= 1)
+    if sound and not missing and bn == want:
         return
-    raise (_HeadDropped if sound else AssertionError)(
-        f"telemetry: perf row (fractions sum {total}, regions missing "
-        f"{missing}) {r}")
+    raise (_RecordsDropped if sound else AssertionError)(said)
 
 
 def _check_telemetry_rows(rows, n_epochs: int, n_steps: int,
                           bn_per_step) -> list:
     """Phase 7's checks of a run's ``events.jsonl``; returns the
-    ``perf_profile`` rows. ``bn_per_step(name)`` is the BN-kernel
-    launches of one step of phase card ``name``: a sample holds them all
-    unless it lost device records. A row whose ``device_records_lost``
-    is not 0 is left to the caller, which takes that window again."""
+    ``perf_profile`` rows and those of them that lack records
+    (:class:`_RecordsDropped`), which the caller takes again.
+    ``bn_per_step(name)`` is the BN-kernel launches of one step of phase
+    card ``name``: a whole sample holds them all. Raises
+    :class:`_RecordsDropped` when no row of the run is whole."""
     import math
     tele = [r for r in rows if r["event"] == "telemetry"]
     beats = [r for r in rows if r["event"] == "heartbeat"]
@@ -2238,10 +2511,16 @@ def _check_telemetry_rows(rows, n_epochs: int, n_steps: int,
     perf = [r for r in rows if r["event"] == "perf_profile"]
     if not perf:
         raise AssertionError("telemetry: no perf_profile row")
+    dropped = []
     for r in perf:
-        if not r["device_records_lost"]:
+        try:
             _check_perf_row(r, bn_per_step)
-    return perf
+        except _RecordsDropped:
+            dropped.append(r)
+    if len(dropped) == len(perf):
+        raise _RecordsDropped(f"telemetry: none of the run's {len(perf)} "
+                              f"perf rows is whole")
+    return perf, dropped
 
 
 def _parse_prometheus(path: str) -> dict:
@@ -2287,9 +2566,10 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
             json.dump(ALERT_RULES, f)
         # The tracer can drop a window's device records together with
         # their launch records, so a row does not always report its loss
-        # (PERF.md § 7); a run whose sampled window misses only a label,
-        # every other check met, is printed and taken again, at most
-        # twice. Any other defect of a row fails the phase at once.
+        # (PERF.md § 7). A row that lacks records, every other check met,
+        # is taken again below on a step of its phase card; a run none of
+        # whose rows is whole is printed and taken again, at most twice.
+        # Any other defect of a row fails the phase at once.
         reruns = []
         for attempt in range(1, TELEMETRY_RUNS + 1):
             prof_dir = os.path.join(tmp, f"trace{attempt}")
@@ -2319,23 +2599,23 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
                     cfg) * _forwards_per_chunk(cfg, "_so1_" in name,
                                                name.endswith("msl1"))
             try:
-                perf = _check_telemetry_rows(
+                perf, dropped = _check_telemetry_rows(
                     rows, cfg.total_epochs,
                     cfg.total_epochs * cfg.total_iter_per_epoch,
                     bn_per_step)
                 break
-            except _HeadDropped as e:
+            except _RecordsDropped as e:
                 if attempt == TELEMETRY_RUNS:
                     raise
                 reruns.append(str(e)[:160])
                 print(f"telemetry cli: run {attempt} of {TELEMETRY_RUNS}: "
-                      f"a sampled window lacks a label its step runs, "
-                      f"with its BN-kernel records whole and none counted "
-                      f"lost ({str(e)[:160]}...); the run is taken again "
-                      f"({card})", flush=True)
+                      f"no sampled window is whole, each lacking records "
+                      f"with every other check met ({str(e)[:160]}); the "
+                      f"run is taken again ({card})", flush=True)
         entry["telemetry_reruns"] = len(reruns)
-        print(f"telemetry cli: {len(reruns)} run(s) taken again for a "
-              f"sampled window's dropped first records; phase 2 retook "
+        print(f"telemetry cli: {len(reruns)} run(s) taken again with no "
+              f"whole sampled window, {len(dropped)} of the run's "
+              f"{len(perf)} samples lacking records; phase 2 retook "
               f"{entry['device_window_retakes']} profiler window(s) "
               f"({card})", flush=True)
         k = cfg.number_of_training_steps_per_iter
@@ -2383,26 +2663,28 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
                     return e, p
             raise AssertionError(f"telemetry: no epoch runs {name}")
 
-        # A sample that lost device records (the tracer dropped part of
-        # the window) is taken again on a step of the same phase card, at
-        # most twice; a window that lost nothing must pass every check.
-        for r in perf:
-            if not r["device_records_lost"]:
-                continue
+        # A sample that lacks records (the tracer dropped part of the
+        # window) is taken again on a step of the same phase card, up to
+        # SAMPLE_RETAKES windows; one of them must pass every check.
+        for r in dropped:
             ep, ph = phase_of(r["top_executable"])
-            for attempt in (1, 2):
+            for attempt in range(1, SAMPLE_RETAKES + 1):
                 again = _sample_window(
                     lambda: builder.train_step(state, batch, ep, **ph),
                     r["top_executable"])
                 _print_sample(f"telemetry cli sample at iter {r['iter']} "
                               f"taken again, attempt {attempt}", again, card)
-                if not again["device_records_lost"]:
+                try:
                     _check_perf_row(again, bn_per_step)
                     break
+                except _RecordsDropped as e:
+                    print(f"telemetry cli: window {attempt} of "
+                          f"{SAMPLE_RETAKES} lacks records "
+                          f"({str(e)[:160]})", flush=True)
             else:
                 raise AssertionError(
-                    f"telemetry: the sample at iter {r['iter']} lost "
-                    f"device records three times")
+                    f"telemetry: the sample at iter {r['iter']} lacked "
+                    f"records in {SAMPLE_RETAKES} windows taken again")
 
         epoch = cfg.total_epochs - 1
         phase = dict(second_order=cfg.use_second_order(epoch),
@@ -2521,12 +2803,12 @@ def _trip_latency(bundle: dict, t_exit: float) -> float:
     return t_exit - stamps[-1]
 
 
-def _tripped_child(tag: str, argv, root: str, chaos, phase: str,
-                   deadline: float, card: str, code=None, env=None) -> dict:
-    """One flagship CLI child that must trip the watchdog in ``phase``:
-    exit 74 within ``deadline`` + 2 polls + 5 s of the hang's start, a
-    bundle with stacks, the flight ring, its trace and ``crash.json``,
-    and one ``watchdog_trip`` row. Returns the bundle's view."""
+def _start_tripped_child(tag: str, argv, root: str, code=None,
+                         env=None) -> dict:
+    """Start one flagship CLI child that must trip the watchdog
+    (:func:`_check_tripped_child` holds it); its output goes to a file
+    and a thread notes the wall time of its exit."""
+    import threading
     run = ["--name_of_args_json_file", FLAGSHIP, "--experiment_root", root,
            "--experiment_name", tag] + CLI_ARGS + TRIP_ARGS + argv
     cmd = ([sys.executable, "-c", code, REPO, str(SPIN_CYCLES)] + run
@@ -2536,10 +2818,36 @@ def _tripped_child(tag: str, argv, root: str, chaos, phase: str,
     child_env = dict(os.environ)
     child_env.pop("MAML_FAULTS", None)
     child_env.update(env or {})
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, env=child_env, capture_output=True,
-                          text=True, timeout=300)
-    t_exit = time.time()
+    os.makedirs(root, exist_ok=True)
+    log = open(os.path.join(root, f"{tag}.out"), "w")
+    proc = _spawn(tag, cmd, env=child_env, stdout=log,
+                  stderr=subprocess.STDOUT)
+    log.close()
+    handle = {"tag": tag, "root": root, "proc": proc, "t0": time.time(),
+              "t_exit": []}
+    waiter = threading.Thread(
+        target=lambda: handle["t_exit"].append((proc.wait(), time.time())),
+        daemon=True)
+    waiter.start()
+    handle["waiter"] = waiter
+    return handle
+
+
+def _check_tripped_child(handle: dict, chaos, phase: str, deadline: float,
+                         card: str) -> dict:
+    """A :func:`_start_tripped_child` child must have tripped the
+    watchdog in ``phase``: exit 74 within ``deadline`` + 2 polls + 5 s of
+    the hang's start, a bundle with stacks, the flight ring, its trace
+    and ``crash.json``, and one ``watchdog_trip`` row. Returns the
+    bundle's view."""
+    tag, root, proc = handle["tag"], handle["root"], handle["proc"]
+    handle["waiter"].join(timeout=300)
+    _reap(proc)
+    if not handle["t_exit"]:
+        raise AssertionError(f"{tag}: no exit within 300 s; killed")
+    t_exit = handle["t_exit"][0][1]
+    with open(os.path.join(root, f"{tag}.out")) as f:
+        output = f.read()
     logs = os.path.join(root, tag, "logs")
     bundle = chaos.bundle_view(os.path.join(logs, "crash_bundle"))
     trips = [e for e in chaos.read_events(logs)
@@ -2551,10 +2859,10 @@ def _tripped_child(tag: str, argv, root: str, chaos, phase: str,
         raise AssertionError(
             f"{tag}: exit {proc.returncode}, bundle {bundle['files']}, "
             f"crash {bundle['crash'].get('reason')}, {len(trips)} trip "
-            f"rows; stderr {proc.stderr[-1500:]}")
+            f"rows; output {output[-1500:]}")
     latency = _trip_latency(bundle, t_exit)
     bound = deadline + 2 * HANG_POLL + HANG_SLACK
-    print(f"{tag}: exit 74 in {time.perf_counter() - t0:.1f} s, "
+    print(f"{tag}: exit 74 in {t_exit - handle['t0']:.1f} s, "
           f"{latency:.2f} s after the hang began (bound {bound:.1f} s: "
           f"deadline {deadline:.1f} + 2 polls of {HANG_POLL} + "
           f"{HANG_SLACK:.0f}); crash.json {bundle['crash']['reason']}, "
@@ -2776,12 +3084,23 @@ def fault_path(entry: dict, card: str) -> None:
     os.makedirs(runs_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="faults_", dir=runs_dir)
     marks = [("start", time.perf_counter())]
+    trips = []
     try:
-        # Phase 13 runs the pod harness's legs: not again here.
+        # The two children that must trip run beside the chaos harness
+        # (for run time): a hang on the device, hang_step.
+        trips = [_start_tripped_child("device_hang", [],
+                                      os.path.join(tmp, "hang"),
+                                      code=DEVICE_HANG_CHILD),
+                 _start_tripped_child("hang_step",
+                                      ["--fault_spec", "hang_step@2"],
+                                      os.path.join(tmp, "hang"),
+                                      env={"MAML_HANG_SECONDS": "60"})]
+        # Phase 13 runs the pod harness's legs and phase 14 the warm
+        # restart: not again here.
         art = chaos.chaos(os.path.join(tmp, "chaos"), "cuda", quick=False,
                           log=lambda line: print(f"chaos: {line}",
                                                  flush=True),
-                          pod_legs=False)
+                          pod_legs=False, warm_legs=False)
         phases = art.pop("_phases")
         print(f"chaos: {json.dumps(art)}", flush=True)
         if art["status"] != "recovered":
@@ -2855,16 +3174,17 @@ def fault_path(entry: dict, card: str) -> None:
         _r12_save_costs(os.path.join(tmp, "r12_saves"), card)
         marks.append(("async", time.perf_counter()))
 
-        # A hang on the device: the spin kernel after the second step.
-        bundle = _tripped_child("device_hang", [], os.path.join(tmp, "hang"),
-                                chaos, "step", HANG_STEP_DEADLINE, card,
-                                code=DEVICE_HANG_CHILD)
+        # A hang on the device (the spin kernel after the second step)
+        # and the hang_step fault, in the children started above.
+        bundle = _check_tripped_child(trips[0], chaos, "step",
+                                      HANG_STEP_DEADLINE, card)
         in_fetch = _main_thread_in_loss_fetch(bundle["stacks"])
-        report = subprocess.run(
+        report = _child(
+            "telemetry_report",
             [sys.executable, os.path.join(REPO, "scripts",
                                           "telemetry_report.py"),
              os.path.join(tmp, "hang", "device_hang"), "--json"],
-            capture_output=True, text=True, timeout=120, cwd=REPO)
+            timeout=120)
         summary = json.loads(report.stdout.strip().splitlines()[-1])
         print(f"device_hang: main thread in the loss fetch in stacks.txt "
               f"{in_fetch}; telemetry_report watchdog section "
@@ -2872,10 +3192,8 @@ def fault_path(entry: dict, card: str) -> None:
         if (not in_fetch or not isinstance(summary["watchdog"], dict)
                 or summary["watchdog"]["trips"] != 1):
             raise AssertionError(f"device_hang: stacks\n{bundle['stacks']}")
-        _tripped_child("hang_step", ["--fault_spec", "hang_step@2"],
-                       os.path.join(tmp, "hang"), chaos, "step",
-                       HANG_STEP_DEADLINE, card,
-                       env={"MAML_HANG_SECONDS": "60"})
+        _check_tripped_child(trips[1], chaos, "step", HANG_STEP_DEADLINE,
+                             card)
         marks.append(("hangs", time.perf_counter()))
 
         entry["launches"] += _watchdog_on_off(cfg, card)
@@ -2885,6 +3203,8 @@ def fault_path(entry: dict, card: str) -> None:
             {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}),
             flush=True)
     finally:
+        for handle in trips:
+            _reap(handle["proc"])
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
 
@@ -3137,11 +3457,11 @@ def serving_plane(entry: dict, card: str, src: str) -> None:
 
         # The metrics row, read by the JAX package's report.
         eng.flush_metrics(JsonlLogger(events), phase="serving_plane")
-        report = subprocess.run(
+        report = _child(
+            "telemetry_report",
             [sys.executable, os.path.join(REPO, "scripts",
                                           "telemetry_report.py"),
-             events, "--json"],
-            capture_output=True, text=True, timeout=120, cwd=REPO)
+             events, "--json"], timeout=120)
         summary = json.loads(report.stdout.strip().splitlines()[-1])
         serving = summary.get("serving")
         if (report.returncode != 0 or not isinstance(serving, dict)
@@ -3235,9 +3555,10 @@ def serving_plane(entry: dict, card: str, src: str) -> None:
         # The fleet: 2 replica processes on this card.
         fleet_out = os.path.join(tmp, "fleet")
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = _child(
+            "fleet_bench",
             [sys.executable, FLEET_SCRIPT, *FLEET_ARGS, "--out", fleet_out],
-            capture_output=True, text=True, timeout=600, cwd=REPO)
+            timeout=600)
         fleet_s = time.perf_counter() - t0
         try:
             art = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -3507,9 +3828,9 @@ def data_path(entry: dict, card: str) -> None:
               f"{want_launches} ({card})", flush=True)
         marks.append(("cli", time.perf_counter()))
 
-        out = subprocess.run([sys.executable, REPORT_SCRIPT,
-                              builder.paths["base"]], capture_output=True,
-                             text=True, timeout=120, cwd=REPO)
+        out = _child("torch_telemetry_report",
+                     [sys.executable, REPORT_SCRIPT, builder.paths["base"]],
+                     timeout=120)
         summary = json.loads(out.stdout.strip().splitlines()[-1])
         steps = bcfg.total_epochs * bcfg.total_iter_per_epoch
         if (out.returncode != 0 or summary.get("steps") != steps
@@ -3548,9 +3869,9 @@ REPLAY_ARGS = ["--device", "cuda", "--config", FLAGSHIP, "--duration", "14",
 def _run_harness(script: str, args, out: str, timeout: float) -> dict:
     """A harness as a subprocess; its last stdout line, or a failure that
     carries the tails of the replicas' logs."""
-    proc = subprocess.run([sys.executable, script, *args, "--out", out],
-                          capture_output=True, text=True, timeout=timeout,
-                          cwd=REPO)
+    proc = _child(os.path.basename(script),
+                  [sys.executable, script, *args, "--out", out],
+                  timeout=timeout)
     try:
         art = json.loads(proc.stdout.strip().splitlines()[-1])
     except (IndexError, ValueError):
@@ -3727,9 +4048,9 @@ def fleet_harnesses(entry: dict, card: str, src: str) -> None:
         marks.append(("replay", time.perf_counter()))
 
         # 4. The SLO report over the replay's traced events.
-        proc = subprocess.run([sys.executable, SLO_SCRIPT, replay_out,
-                               "--json"], capture_output=True, text=True,
-                              timeout=300, cwd=REPO)
+        proc = _child("torch_slo_report",
+                      [sys.executable, SLO_SCRIPT, replay_out, "--json"],
+                      timeout=300)
         slo = json.loads(proc.stdout.strip().splitlines()[-1])
         # Every tracked request of the three legs was traced (rate 1.0);
         # a trace is linked when a replica's spans survived its 4096-span
@@ -3745,10 +4066,9 @@ def fleet_harnesses(entry: dict, card: str, src: str) -> None:
 
         # 5. The trace export over phase 5's run, the checkpoint's source.
         out_trace = os.path.join(tmp, "trace.json")
-        proc = subprocess.run([sys.executable, EXPORT_SCRIPT,
-                               os.path.dirname(src), "--out", out_trace],
-                              capture_output=True, text=True, timeout=300,
-                              cwd=REPO)
+        proc = _child("torch_trace_export",
+                      [sys.executable, EXPORT_SCRIPT, os.path.dirname(src),
+                       "--out", out_trace], timeout=300)
         exp = json.loads(proc.stdout.strip().splitlines()[-1])
         with open(out_trace) as f:
             written = json.load(f)
@@ -3794,16 +4114,11 @@ def _run_ranks(tag: str, cmd, timeout: float, env=None, proc=None) -> str:
     its own, or wait for ``proc``, one :func:`_start_ranks` started; its
     output. Fails when it exits non-zero or outlives ``timeout`` (a hung
     collective): the whole session is killed."""
-    import signal
     proc = proc or _start_ranks(cmd, env)
     try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        raise AssertionError(f"{tag}: no exit within {timeout} s (a hung "
-                             f"collective?); killed. Output tail: "
-                             f"{out[-3000:]}")
+        out = _finish(tag, proc, timeout).stdout
+    except TimeoutError as e:
+        raise AssertionError(f"{tag}: a hung collective? {e}")
     if proc.returncode != 0:
         raise AssertionError(f"{tag}: exit {proc.returncode}. Output tail: "
                              f"{out[-4000:]}")
@@ -3812,9 +4127,7 @@ def _run_ranks(tag: str, cmd, timeout: float, env=None, proc=None) -> str:
 
 def _start_ranks(cmd, env=None) -> subprocess.Popen:
     """Start ``cmd`` in a session of its own, its output piped."""
-    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    return _spawn("ranks", cmd, env=env, stderr=subprocess.STDOUT)
 
 
 def _start_torchrun(out: str, mode: str, argv) -> subprocess.Popen:
@@ -4140,12 +4453,19 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
         env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
                    LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(_free_port()))
-        # (a)'s rank and (c)'s ranks run beside (b)'s witness ranks (for
-        # run time); (b)'s CLI runs alone.
+        # (a)'s rank, (c)'s ranks and the paused half of (b)'s CLI run
+        # beside (b)'s witness ranks (for run time); the CLI's resumed
+        # half follows its paused half.
         pod_argv = (["--name_of_args_json_file", RESNET12,
                      "--experiment_root", os.path.join(tmp, "pod_run")]
                     + R12_MESH_ARGS)
         pod_proc = _start_torchrun(os.path.join(tmp, "pod"), "pod", pod_argv)
+        root = os.path.join(tmp, "cli")
+        base = ["--name_of_args_json_file", FLAGSHIP, "--experiment_root",
+                root] + MESH_CLI_ARGS
+        pause_argv = base + ["--total_epochs_before_pause", "1"]
+        pause_proc = _start_torchrun(os.path.join(tmp, "pause"), "cli",
+                                     pause_argv)
         step_proc = _start_ranks([sys.executable, os.path.abspath(__file__),
                                   MESH_CHILD_FLAG, "step", out, job], env)
         try:
@@ -4243,14 +4563,11 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
         entry["launches"] += sum(r["launches"] for r in shard)
         seconds["a, b witness, c"] = round(time.perf_counter() - t0, 1)
 
-        # The CLI under torchrun, paused after epoch 0 and resumed.
+        # The CLI under torchrun, paused after epoch 0 (started above)
+        # and resumed.
         t0 = time.perf_counter()
-        root = os.path.join(tmp, "cli")
-        base = ["--name_of_args_json_file", FLAGSHIP, "--experiment_root",
-                root] + MESH_CLI_ARGS
         paused = _torchrun("mesh (b) pause", os.path.join(tmp, "pause"),
-                           "cli", base + ["--total_epochs_before_pause",
-                                          "1"], MESH_TIMEOUT)
+                           "cli", pause_argv, MESH_TIMEOUT, proc=pause_proc)
         resumed = _torchrun("mesh (b) resume", os.path.join(tmp, "resume"),
                             "cli", base + ["--continue_from_epoch",
                                            "latest"], MESH_TIMEOUT)
@@ -4422,7 +4739,6 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
     """Phase 13: the pod fault domain on the card (module docstring); adds
     every rank's BN-kernel launches to ``entry``."""
     import shutil
-    import signal
     import tempfile
     import torch
     from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
@@ -4452,12 +4768,12 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
               flush=True)
         for i, chain in enumerate(POD_CHAINS):
             with open(os.path.join(tmp, f"harness{i}.out"), "w") as log:
-                procs.append(subprocess.Popen(
+                procs.append(_spawn(
+                    f"pod harness {chain}",
                     [sys.executable, POD_SCRIPT, "--device", "cuda",
                      "--config", config, "--out",
                      os.path.join(tmp, f"pod{i}"), "--phases", chain]
-                    + POD_ARGS, cwd=REPO, stdout=log,
-                    stderr=subprocess.STDOUT, start_new_session=True))
+                    + POD_ARGS, stdout=log, stderr=subprocess.STDOUT))
 
         # (d) armed, not tripped: one rank, bitwise phase 5's run; in this
         # process while the harness's ranks run.
@@ -4473,9 +4789,7 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
                 proc.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 for q in procs:
-                    with contextlib.suppress(ProcessLookupError):
-                        os.killpg(q.pid, signal.SIGKILL)
-                    q.wait()
+                    _reap(q)
             with open(os.path.join(tmp, f"harness{i}.out")) as f:
                 out = f.read()
             if proc.returncode is None or proc.returncode < 0:
@@ -4624,14 +4938,338 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
               flush=True)
     finally:
         for q in procs:  # none is left running, whatever raised
-            if q.poll() is None:
-                with contextlib.suppress(ProcessLookupError):
-                    os.killpg(q.pid, signal.SIGKILL)
-                q.wait()
+            _reap(q)
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("phase 13: " + "; ".join(failures))
+
+
+# Phase 14: the warm start. The CLI children run phase 5's length cuts,
+# both knobs on fresh directories.
+WARM_TIMEOUT = 300
+# (b)'s steps: (epoch, batch index); two opt.count values per phase key.
+WARM_STEPS = ((0, 0), (0, 1), (41, 2), (41, 3))
+
+
+def _cli_child_cmd(root: str, tag: str, store: str, cache: str) -> list:
+    return ([sys.executable, "-m",
+             "howtotrainyourmamlpytorch_tpu_torch.train_maml_system",
+             "--name_of_args_json_file", FLAGSHIP, "--experiment_root", root,
+             "--experiment_name", tag] + CLI_ARGS
+            + ["--aot_store_dir", store, "--compilation_cache_dir", cache])
+
+
+def _warm_row(root: str, tag: str) -> dict:
+    """A CLI child's ``warm_start`` row and its last registry snapshot."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
+    rows = read_jsonl(os.path.join(root, tag, "logs", "events.jsonl"))
+    warm = [r for r in rows if r.get("event") == "warm_start"]
+    snaps = [r.get("metrics") or {} for r in rows
+             if r.get("event") == "metrics"]
+    return {"row": warm[-1] if warm else {},
+            "metrics": snaps[-1] if snaps else {}}
+
+
+def _trees_bitwise(a, b) -> list:
+    """Names of the differing leaves of two trees (by
+    ``parallel/aot.py § flatten``; a different structure is one name)."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import aot
+    (la, sa), (lb, sb) = aot.flatten(a), aot.flatten(b)
+    if aot._structure(sa) != aot._structure(sb):
+        return ["<structure>"]
+    return [str(i) for i, (x, y) in enumerate(zip(la, lb))
+            if x.shape != y.shape or not torch.equal(x, y)]
+
+
+def warm_start(entry: dict, card: str) -> None:
+    """Phase 14: the warm-start subsystem at the flagship's full width
+    (``parallel/aot.py``; module docstring). (a) serving: an eager
+    engine, a cold engine on a fresh store (misses, captured and
+    recorded) and a second engine on the same store (hits, no misses),
+    all on the same requests under deterministic cuDNN: logits bitwise,
+    BN-kernel launches 20 per adapt run and 4 per predict run, replays
+    and captures' warm-ups included. (b) training: ``WARM_STEPS`` through
+    the phase keys' graphs and eagerly from one state (epoch 0 and 41,
+    two ``opt.count`` values each): state, Adam moments and metrics
+    bitwise (else held to ``F32_FLOORS``), one eval batch bitwise,
+    launches as derived; step wall times and one profiled step each
+    printed, nothing claimed. (c) warm restart: the prewarm script and a
+    cold CLI child run beside (a) and (b); then the CLI child on the warm
+    store: exit 0, hits > 0, misses 0, no nvcc run. Adds the launches of
+    (a) and (b) to ``entry``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+    from howtotrainyourmamlpytorch_tpu_torch.data import (
+        MetaLearningDataLoader)
+    from howtotrainyourmamlpytorch_tpu_torch.device import numerics_policy
+    from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
+        init_train_state, make_eval_step, make_train_step)
+    from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import aot
+    from howtotrainyourmamlpytorch_tpu_torch.serve import (
+        FewShotRequest, ServingEngine)
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    os.makedirs(os.path.join(REPO, ".smoke_runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="warm_start_",
+                           dir=os.path.join(REPO, ".smoke_runs"))
+    children = []
+    failures = []
+    try:
+        # (c) first half, beside (a) and (b): the chaos harness's
+        # warm-restart leg starts its prewarm child (a fresh store and
+        # kernel cache); a cold CLI child runs on empty ones.
+        chaos = _load_script(CHAOS_SCRIPT)
+        leg_out = os.path.join(tmp, "leg")
+
+        def popen(cmd, **kw):
+            children.append(_spawn("warm restart leg", cmd,
+                                   env=kw.get("env"), stdout=kw["stdout"],
+                                   stderr=kw["stderr"]))
+            return children[-1]
+
+        leg = chaos.start_warm_restart_leg(leg_out, "cuda", quick=False,
+                                           popen=popen,
+                                           prewarm_args=["--serve"])
+        runs = os.path.join(tmp, "runs")
+        cold = _spawn("cold cli", _cli_child_cmd(
+            runs, "cold", os.path.join(tmp, "cold_store"),
+            os.path.join(tmp, "cold_cache")))
+        children.append(cold)
+
+        # (a) serving.
+        t1 = time.perf_counter()
+        cfg = MAMLConfig.from_json_file(FLAGSHIP).replace(
+            bn_backend="pallas", serve_default_deadline_ms=0.0)
+        model_init, _ = make_model(cfg)
+        state = init_train_state(cfg, model_init, seed=cfg.seed,
+                                 device="cuda")
+        h, w, c = cfg.image_shape
+        n, k = cfg.num_classes_per_set, cfg.num_samples_per_class
+        rng = np.random.default_rng(cfg.seed + 14)
+        requests = [FewShotRequest(
+            support_x=rng.integers(0, 256, (n * k, h, w, c), dtype=np.uint8),
+            support_y=np.repeat(np.arange(n, dtype=np.int32), k),
+            query_x=rng.integers(0, 256, (cfg.num_target_per_task, h, w, c),
+                                 dtype=np.uint8))
+            for _ in range(2 * cfg.serve_batch_tasks)]
+        store_a = os.path.join(tmp, "serve_store")
+        served, counts = {}, {}
+        with numerics_policy(cfg.compute_dtype, deterministic=True):
+            for name, ecfg in (("eager", cfg),
+                               ("cold", cfg.replace(aot_store_dir=store_a)),
+                               ("warm", cfg.replace(aot_store_dir=store_a))):
+                bn_act.reset_launches()
+                eng = ServingEngine(ecfg, state, device="cuda")
+                try:
+                    eng.warmup()
+                    for req in requests:
+                        eng.submit(FewShotRequest(
+                            support_x=req.support_x,
+                            support_y=req.support_y,
+                            query_x=req.query_x))
+                    out = eng.drain()
+                    torch.cuda.synchronize()
+                    snap = eng.registry.snapshot()
+                    served[name] = [r.logits for r in out]
+                    execs = list(eng._aot_adapt.values()) + list(
+                        eng._aot_predict.values())
+                    counts[name] = {
+                        "launches": bn_act.launches,
+                        "derived": 20 * eng.adapt_runs
+                        + 4 * eng.predict_runs,
+                        "adapt_runs": eng.adapt_runs,
+                        "predict_runs": eng.predict_runs,
+                        "hits": int(snap.get(aot.HITS, 0)),
+                        "misses": int(snap.get(aot.MISSES, 0)),
+                        "errors": int(snap.get(aot.ERRORS, 0)),
+                        "graphs": [getattr(e, "compiled", None) is not None
+                                   for e in execs],
+                        "captured": [getattr(e.compiled, "launches", None)
+                                     for e in execs
+                                     if getattr(e, "compiled", None)]}
+                finally:
+                    eng.close()
+        entry["launches"] += sum(counts[k]["launches"] for k in counts)
+        bitwise = {k: all(np.array_equal(a, b) for a, b in zip(
+            served["eager"], served[k])) and len(served[k]) == len(
+            served["eager"]) for k in ("cold", "warm")}
+        print(f"warm start (a) serving: {len(requests)} requests through an "
+              f"eager engine, a cold one and a warm one on one store: "
+              f"logits bitwise the eager engine's {json.dumps(bitwise)}; "
+              f"{json.dumps(counts)} ({card})", flush=True)
+        a = counts
+        if (not all(bitwise.values())
+                or any(a[k]["launches"] != a[k]["derived"] for k in a)
+                or a["cold"]["misses"] != 2 or a["cold"]["hits"] != 0
+                or a["warm"]["hits"] != 2 or a["warm"]["misses"] != 0
+                or a["cold"]["errors"] or a["warm"]["errors"]
+                or not all(a["cold"]["graphs"] + a["warm"]["graphs"])
+                or sorted(a["warm"]["captured"]) != [4, 20]):
+            failures.append(f"(a) serving: bitwise {bitwise}, "
+                            f"{json.dumps(counts)}")
+        seconds["a"] = round(time.perf_counter() - t1, 1)
+
+        # (b) training: the phase keys' graphs against the eager steps.
+        t1 = time.perf_counter()
+        model_init, apply = make_model(cfg)
+        state0 = init_train_state(cfg, model_init, seed=cfg.seed,
+                                  device="cuda")
+        loader = MetaLearningDataLoader(cfg, device="cuda")
+        it = loader.get_train_batches(0, len(WARM_STEPS))
+        batches = [next(it) for _ in WARM_STEPS]
+        it.close()
+        val = loader.get_val_batches()
+        eval_batch = next(val)
+        val.close()
+        train_step = make_train_step(cfg, apply)
+        eval_step = make_eval_step(cfg, apply)
+        micro, stages = cfg.effective_task_microbatches(), cfg.num_stages
+        per_step = {e: micro * stages * _forwards_per_chunk(
+            cfg, cfg.use_second_order(e), cfg.use_msl(e))
+            for e, _ in WARM_STEPS}
+        chains, times = {}, {"eager": {}, "graph": {}}
+        graphs = {}
+        with numerics_policy(cfg.compute_dtype, deterministic=True):
+            bn_act.reset_launches()
+            for mode in ("eager", "graph"):
+                st, metrics = state0, []
+                for epoch, b in WARM_STEPS:
+                    key = (cfg.use_second_order(epoch), cfg.use_msl(epoch))
+                    fn = train_step
+                    if mode == "graph":
+                        if key not in graphs:
+                            graphs[key] = aot.TrainGraph(
+                                cfg, train_step, key, st,
+                                aot.zero_episode(cfg, cfg.batch_size,
+                                                 "cuda"), epoch)
+                        fn = graphs[key]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st, m = fn(st, batches[b], epoch, second_order=key[0],
+                               use_msl=key[1])
+                    torch.cuda.synchronize()
+                    times[mode].setdefault(str(key), []).append(round(
+                        (time.perf_counter() - t0) * 1e3, 1))
+                    metrics.append((m.loss, m.accuracy, m.support_loss,
+                                    m.learning_rate))
+                chains[mode] = (st, metrics)
+            eval_graph = aot.EvalGraph(eval_step, chains["eager"][0],
+                                       eval_batch)
+            res_e = eval_step(chains["eager"][0], eval_batch)
+            res_g = eval_graph(chains["eager"][0], eval_batch)
+            torch.cuda.synchronize()
+            train_launches = bn_act.launches
+            # Wall and device time of one step of each, for the record.
+            key41 = (cfg.use_second_order(41), cfg.use_msl(41))
+            prof_e = _profiled("warm start (b) eager epoch-41 step",
+                               lambda: train_step(
+                                   chains["eager"][0], batches[3], 41,
+                                   second_order=key41[0],
+                                   use_msl=key41[1]), card)
+            prof_g = _profiled("warm start (b) graph epoch-41 step",
+                               lambda: graphs[key41](
+                                   chains["graph"][0], batches[3], 41,
+                                   second_order=key41[0],
+                                   use_msl=key41[1]), card)
+        entry["launches"] += train_launches
+        (st_e, m_e), (st_g, m_g) = chains["eager"], chains["graph"]
+        diff = _trees_bitwise(st_e, st_g)
+        m_diff = [i for i, (x, y) in enumerate(zip(m_e, m_g))
+                  if _trees_bitwise(x[:3], y[:3]) or x[3] != y[3]]
+        e_diff = _trees_bitwise(tuple(res_e), tuple(res_g))
+        counters = (st_e.opt_state.count, st_e.step,
+                    st_g.opt_state.count, st_g.step)
+        warmups = sum(per_step[e] for e, _ in ((0, 0), (41, 0)))
+        derived = (2 * sum(per_step[e] for e, _ in WARM_STEPS) + warmups
+                   + 3 * stages * (cfg.number_of_evaluation_steps_per_iter
+                                   + 1))
+        captured = {str(k_): g.launches for k_, g in graphs.items()}
+        print(f"warm start (b) training: {len(WARM_STEPS)} steps (epochs "
+              f"{[e for e, _ in WARM_STEPS]}, opt.count 0..3) eagerly and "
+              f"through {len(graphs)} phase-key graphs from one state: "
+              f"differing state leaves {diff}, differing step metrics "
+              f"{m_diff}, counters {counters}; eval batch graph vs eager "
+              f"differing {e_diff}; bn_act launches {train_launches} (derived "
+              f"{derived}: 2 x the steps + one warm-up step per key + 3 eval "
+              f"batches, the graph's warm-up included; captured per key {json.dumps(captured)}); step ms "
+              f"{json.dumps(times)}; profiled wall/device/idle eager "
+              f"{prof_e['wall_ms']:.1f}/{prof_e['device_ms']:.1f}/"
+              f"{prof_e['idle']:.3f}, graph {prof_g['wall_ms']:.1f}/"
+              f"{prof_g['device_ms']:.1f}/{prof_g['idle']:.3f} ({card})",
+              flush=True)
+        if diff or m_diff:
+            from howtotrainyourmamlpytorch_tpu_torch.tree import tree_map
+            upd = lambda s: _leaf_vectors(tree_map(
+                torch.sub, {"params": s.params, "lslr": s.lslr},
+                {"params": state0.params, "lslr": state0.lslr}))
+            failures += _compare_meta_gradients(
+                "warm start (b) graph vs eager",
+                (float(m_g[-1][0]), upd(st_g)),
+                (float(m_e[-1][0]), upd(st_e)), F32_FLOORS, card,
+                what="the update over the steps")
+        for key_, g in graphs.items():
+            if g.launches != per_step[41 if key_[0] else 0]:
+                failures.append(f"(b) {key_}: captured {g.launches} "
+                                f"launches, the step makes "
+                                f"{per_step[41 if key_[0] else 0]}")
+        if (e_diff or train_launches != derived
+                or counters != (4, 4, 4, 4)):
+            failures.append(f"(b) eval differing {e_diff}, launches "
+                            f"{train_launches} vs {derived}, counters "
+                            f"{counters}")
+        del graphs, eval_graph, chains
+        torch.cuda.empty_cache()
+        seconds["b"] = round(time.perf_counter() - t1, 1)
+
+        # (c) warm restart: the leg waits for its prewarm, then runs the
+        # CLI child on the warm store; the cold child's time to first
+        # step beside it.
+        t1 = time.perf_counter()
+        res = chaos.finish_warm_restart_leg(leg, timeout=WARM_TIMEOUT)
+        seconds["leg"] = round(time.perf_counter() - t1, 1)
+        coldp = _finish("cold cli", cold, WARM_TIMEOUT)
+        pre = res["warm_restart_prewarm"]
+        wm = _warm_row(leg_out, "chaos_warm")["metrics"]
+        crow = _warm_row(runs, "cold")["row"]
+        print(f"warm start (c): prewarm {json.dumps(pre)}; the warm "
+              f"restart leg {json.dumps({k_: v for k_, v in res.items() if k_ != 'warm_restart_prewarm'})}, "
+              f"aot counters "
+              f"{json.dumps({k_: v for k_, v in wm.items() if k_.startswith('aot/')})}"
+              f"; cold CLI (beside (a) and (b)) exit {coldp.returncode}: "
+              f"warm_start {json.dumps(crow)}; time to first step cold "
+              f"{crow.get('time_to_first_step_seconds')} s, warm "
+              f"{res.get('warm_restart_time_to_first_step_s')} s ({card})",
+              flush=True)
+        if (not res["warm_restart_ok"] or pre.get("nvcc_runs") != 1
+                or res["warm_restart_nvcc_runs_before_first_step"] != 0
+                or int(wm.get(aot.MISSES, -1)) != 0
+                or int(wm.get(aot.HITS, 0)) < 1
+                or int(wm.get(aot.ERRORS, 0)) != 0):
+            failures.append(f"(c) warm restart: {json.dumps(res)[-3000:]}"
+                            f", metrics {json.dumps(wm)[-1500:]}")
+        if (coldp.returncode != 0 or (crow.get("aot_misses") or 0) < 1
+                or crow.get("nvcc_runs_before_first_step") != 1):
+            failures.append(f"(c) cold CLI: exit {coldp.returncode}, row "
+                            f"{json.dumps(crow)}; stderr "
+                            f"{coldp.stderr[-2000:]}")
+        seconds["c"] = round(time.perf_counter() - t1, 1)
+    finally:
+        for proc in children:
+            _reap(proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    seconds["all"] = round(time.perf_counter() - t_phase, 1)
+    print("phase 14 seconds per part: " + json.dumps(seconds), flush=True)
+    if failures:
+        raise AssertionError("phase 14: " + "; ".join(failures))
 
 
 def _epoch_seconds(logs: str) -> list:
@@ -4640,6 +5278,123 @@ def _epoch_seconds(logs: str) -> list:
         load_statistics)
     return [round(float(v), 2)
             for v in load_statistics(logs)["epoch_seconds"]]
+
+
+def _no_leftovers() -> bool:
+    """Print the processes this script started that are still alive and
+    the compute processes on the card other than this one; True when
+    both lists are empty. Whatever is left is killed all the same."""
+    alive = _survivors()
+    on_card = _card_processes()
+    print(f"chip_smoke: processes started and still alive {alive}; "
+          f"compute processes on the card besides this one {on_card} "
+          f"({len(_STARTED)} processes started)", flush=True)
+    if alive or on_card:
+        print(f"chip_smoke: FAILED: left running {alive}, on the card "
+              f"{on_card}", file=sys.stderr, flush=True)
+        for pid, _ in alive:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, signal.SIGKILL)
+    return not alive and not on_card
+
+
+def _become_subreaper() -> None:
+    """Make this process the reaper of its orphaned descendants (Linux
+    ``PR_SET_CHILD_SUBREAPER``), so a grandchild whose parent died still
+    counts as this script's and is listed and killed at the end."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:   # PR_SET_CHILD_SUBREAPER
+        print(f"chip_smoke: PR_SET_CHILD_SUBREAPER failed (errno "
+              f"{ctypes.get_errno()}): orphans of children are not "
+              f"tracked", flush=True)
+
+
+# Phases 6, 8 and 14 need nothing of the others: each runs in a child
+# process (``--phase-child``) beside other phases, for run time (the
+# limit is 1200 s); the child's output is printed when it is joined, its
+# launches added to the kernel's entry. Phase 11's latency gates and
+# phase 13's leases run beside nothing.
+PHASE_CHILD_FLAG = "--phase-child"
+PHASE_SCHEDULE = (
+    ("start", "backbones"), ("run", "serve"), ("run", "train"),
+    ("run", "cli"), ("run", "telemetry"), ("join", "backbones"),
+    ("start", "faults"), ("start", "warm"), ("run", "serving"),
+    ("run", "data"), ("join", "warm"), ("run", "mesh"), ("join", "faults"),
+    ("run", "fleet"), ("run", "pod"))
+PHASE_CHILD_TIMEOUT = 900
+
+
+def _phase_children() -> dict:
+    return {"backbones": other_backbones, "faults": fault_path,
+            "warm": warm_start}
+
+
+def _start_phase_child(name: str) -> dict:
+    """Start phase ``name`` in a child process; its output goes to a file
+    under ``.smoke_runs/``."""
+    runs = os.path.join(REPO, ".smoke_runs")
+    os.makedirs(runs, exist_ok=True)
+    out = os.path.join(runs, f"phase_{name}_{os.getpid()}")
+    log = open(f"{out}.log", "w")
+    proc = _spawn(f"phase {name}", [sys.executable, os.path.abspath(
+        __file__), PHASE_CHILD_FLAG, name, f"{out}.json"], stdout=log,
+        stderr=subprocess.STDOUT)
+    log.close()
+    print(f"chip_smoke: phase {name} started in child {proc.pid}",
+          flush=True)
+    return {"name": name, "proc": proc, "out": out}
+
+
+def _join_phase_child(handle: dict, entry: dict) -> float:
+    """Wait for a :func:`_start_phase_child` child, print its output, add
+    its launches to ``entry``; returns its own seconds. Fails when it
+    failed or outlived ``PHASE_CHILD_TIMEOUT``."""
+    name, proc, out = handle["name"], handle["proc"], handle["out"]
+    try:
+        proc.wait(timeout=PHASE_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    _reap(proc)
+    with open(f"{out}.log") as f:
+        log = f.read()
+    print(f"chip_smoke: --- phase {name} (child {proc.pid}, exit "
+          f"{proc.returncode}) ---\n{log.rstrip()}\n"
+          f"chip_smoke: --- end of phase {name} ---", flush=True)
+    if proc.returncode != 0 or not os.path.exists(f"{out}.json"):
+        raise AssertionError(f"phase {name} (child): exit "
+                             f"{proc.returncode}")
+    with open(f"{out}.json") as f:
+        res = json.load(f)
+    for path in (f"{out}.log", f"{out}.json"):
+        os.remove(path)
+    entry["launches"] += res["launches"]
+    return res["seconds"]
+
+
+def _phase_child(argv) -> int:
+    """``chip_smoke.py --phase-child <name> <out.json>``: one phase in
+    this process, as main() sets the card up; writes its launches and
+    seconds."""
+    import torch
+    name, out = argv
+    _become_subreaper()
+    sys.path.insert(0, REPO)
+    from howtotrainyourmamlpytorch_tpu_torch.ops import build
+    build.load("bn_act")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _card_line()
+    entry = {"launches": 0}
+    t0 = time.perf_counter()
+    try:
+        _phase_children()[name](entry, card)
+    finally:
+        _reap_all()
+    with open(out, "w") as f:
+        json.dump({"launches": entry["launches"],
+                   "seconds": round(time.perf_counter() - t0, 1)}, f)
+    return 0
 
 
 def main() -> int:
@@ -4654,6 +5409,7 @@ def main() -> int:
         print(f"chip_smoke: the port's package is missing ({e}); run from "
               f"the root of a checkout", file=sys.stderr)
         return 2
+    _become_subreaper()
     card = _card_line()
     device_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}",
@@ -4674,27 +5430,43 @@ def main() -> int:
     t1 = time.perf_counter()
     entry = check_bn_act(device_name, card)
     seconds = {"bn_act": round(time.perf_counter() - t1, 1)}
-    results = {}
-    for name, phase in (("serve", serve_flagship), ("train", train_flagship),
-                        ("cli", cli_flagship),
-                        ("backbones", other_backbones),
-                        ("telemetry", lambda e, c: cli_telemetry(
-                            e, c, results["cli"])),
-                        ("faults", fault_path),
-                        ("serving", lambda e, c: serving_plane(
-                            e, c, results["cli"]["saved_models"])),
-                        ("data", data_path),
-                        ("fleet", lambda e, c: fleet_harnesses(
-                            e, c, results["cli"]["saved_models"])),
-                        ("mesh", lambda e, c: mesh_path(
-                            e, c, results["train"], results["cli"])),
-                        ("pod", lambda e, c: pod_fault_domain(
-                            e, c, results["cli"]))):
-        t1 = time.perf_counter()
-        results[name] = phase(entry, card)
-        seconds[name] = round(time.perf_counter() - t1, 1)
+    results, children = {}, {}
+    phases = {
+        "serve": serve_flagship, "train": train_flagship,
+        "cli": cli_flagship,
+        "telemetry": lambda e, c: cli_telemetry(e, c, results["cli"]),
+        "serving": lambda e, c: serving_plane(
+            e, c, results["cli"]["saved_models"]),
+        "data": data_path,
+        "fleet": lambda e, c: fleet_harnesses(
+            e, c, results["cli"]["saved_models"]),
+        "mesh": lambda e, c: mesh_path(e, c, results["train"],
+                                       results["cli"]),
+        "pod": lambda e, c: pod_fault_domain(e, c, results["cli"])}
+    try:
+        for step, name in PHASE_SCHEDULE:
+            t1 = time.perf_counter()
+            if step == "start":
+                children[name] = _start_phase_child(name)
+                continue
+            try:
+                if step == "join":
+                    seconds[f"{name} (beside)"] = _join_phase_child(
+                        children.pop(name), entry)
+                    seconds[f"{name} join wait"] = round(
+                        time.perf_counter() - t1, 1)
+                    continue
+                results[name] = phases[name](entry, card)
+            finally:
+                if not children:
+                    _reap_all()
+            seconds[name] = round(time.perf_counter() - t1, 1)
+    finally:
+        _reap_all()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, build "
           f"included; seconds per phase {json.dumps(seconds)}", flush=True)
+    if not _no_leftovers():
+        return 1
 
     print(card, flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)
@@ -4707,4 +5479,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [MESH_CHILD_FLAG]:
         sys.exit(_mesh_child(sys.argv[2:]))
+    if sys.argv[1:2] == [PHASE_CHILD_FLAG]:
+        sys.exit(_phase_child(sys.argv[2:]))
     sys.exit(main())

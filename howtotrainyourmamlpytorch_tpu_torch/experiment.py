@@ -13,8 +13,8 @@ probabilities are summed into the ensemble's prediction
 On the card:
 
 * The phase flags (derivative-order annealing, MSL window) are read per
-  epoch; eager PyTorch has no executables to swap, so
-  ``precompile_phases`` is a documented no-op.
+  epoch; ``precompile_phases`` is a documented no-op (the warm-start
+  store below is what captures the phase executables).
 * Per-step metrics stay on the device and are fetched once at the
   epoch's end; the loss is fetched every ``dispatch_sync_every`` steps,
   for the divergence guard, the live progress line and preemption.
@@ -95,8 +95,21 @@ geometry (``apply_roster``, before anything reads the config); a
 degraded run counts its epochs and re-expands when every missing host
 has asked to rejoin.
 
-Not ported yet (each raises when set away from its default, naming its
-ROADMAP.md Queue 1 item): the AOT store and compile cache.
+Warm start (``parallel/aot.py``, the JAX package's ``_adopt_aot_plan``
+and ``warm_start`` row): ``compilation_cache_dir`` is the kernel build
+cache for the run (``ops/build.py § set_cache_dir``). With
+``aot_store_dir`` (one process on the card: a ``ValueError`` on the CPU
+or with several processes), the train step of each phase key of the
+remaining schedule and the eval step run as CUDA graphs: the first phase
+key's and the eval step's are captured before the first step (hits from
+the store's records, misses captured and recorded), a later key's at
+its phase boundary on the stepping thread, before its epoch's batches
+are asked for (the JAX trainer compiles those on a background thread).
+Steps with training health, and a phase's first step under the perf
+sampler (which counts its FLOPs), run eagerly. Each session logs one
+``warm_start`` row after its first train step (time to it, kernel builds
+and graph misses captured before it, hits, misses) and sets the
+``warm_start/*`` gauges.
 """
 
 from __future__ import annotations
@@ -125,7 +138,8 @@ from howtotrainyourmamlpytorch_tpu_torch.meta.inner import (
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
     MetaTrainState, init_train_state, migrate_lslr_rows, reconcile_loaded_shapes, state_leaf_shapes)
 from howtotrainyourmamlpytorch_tpu_torch.models import make_model
-from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
+from howtotrainyourmamlpytorch_tpu_torch.ops import build
+from howtotrainyourmamlpytorch_tpu_torch.parallel import aot, multihost
 from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import (
     make_mesh, make_sharded_steps)
 from howtotrainyourmamlpytorch_tpu_torch.parallel.multihost import (
@@ -151,23 +165,6 @@ from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
     build_experiment_folder, save_statistics, save_to_json)
 from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import (
     JsonlLogger, StepTimer, profile_trace, read_jsonl)
-
-def refuse_unported_knobs(cfg: MAMLConfig) -> None:
-    """Raise ``NotImplementedError`` for a knob whose subsystem the port
-    does not have yet, set away from its default: a run must not quietly
-    do less than its config says."""
-    checks = (
-        (bool(cfg.aot_store_dir), "aot_store_dir (the AOT executable store)",
-         "AOT/compile-cache slice"),
-        (bool(cfg.compilation_cache_dir),
-         "compilation_cache_dir (the persistent compile cache)",
-         "AOT/compile-cache slice"),
-    )
-    for unported, what, item in checks:
-        if unported:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})")
-
 
 def _mesh_geometry(cfg: MAMLConfig, world: int) -> MAMLConfig:
     """The config whose ``mesh_shape`` this world realizes: with several
@@ -200,8 +197,13 @@ class ExperimentBuilder:
     for), over the mesh of the process group when there is one."""
 
     def __init__(self, cfg: MAMLConfig, device: DeviceLike = None):
-        refuse_unported_knobs(cfg)
         self.device = multihost.rank_device(device)
+        aot.require_card(cfg, self.device)
+        if aot.enabled(cfg) and multihost.process_count() > 1:
+            raise ValueError(
+                "aot_store_dir captures one process's step: a rank's step "
+                "holds its collective, which runs outside a CUDA graph "
+                "(unset aot_store_dir for a multi-process run)")
         # Every rank computes; process 0 alone writes the shared files.
         self.is_main_process = multihost.process_index() == 0
         self._multihost = multihost.process_count() > 1
@@ -304,6 +306,17 @@ class ExperimentBuilder:
         self._beacon: Optional[watchdog.ProgressBeacon] = None
         self._flightrec: Optional[flightrec.FlightRecorder] = None
         self._eval_compile_stamped = False
+        # Warm start (parallel/aot.py): the store, its adoption stats, the
+        # phase keys whose executables are adopted (graph or eager
+        # fallback) and those probed at adoption for their boundary.
+        self._aot_store: Optional[aot.AOTStore] = None
+        self._aot_stats: Optional[Dict[str, Any]] = None
+        self._phase_fns: Dict[Any, Any] = {}
+        self._deferred: set = set()
+        self._run_started_at: Optional[float] = None
+        self._nvcc_at_start = 0
+        self._captures_before_first_step: Optional[int] = None
+        self._first_dispatch_noted = False
         # Pod fault domain and elastic policy: installed for
         # run_experiment only, iff cluster_collective_timeout_s > 0 (and
         # elastic_mode=1 for the policy).
@@ -474,6 +487,9 @@ class ExperimentBuilder:
         if cfg.profile_dir and epoch == cfg.profile_epoch:
             prof = profile_trace(cfg.profile_dir, f"epoch{epoch}")
             prof.__enter__()
+        # A deferred phase key's executable is captured here, on the
+        # stepping thread, before this epoch's batches are asked for.
+        self._adopt_deferred(phase_key, epoch)
         batches = self.data.get_train_batches(self.current_iter, iters_left)
         try:
             for i, batch in enumerate(batches):
@@ -502,7 +518,13 @@ class ExperimentBuilder:
                             and prof is None
                             and self._perf.due(self.current_iter)
                             and self._perf.start_window(self.current_iter))
-                step = lambda: self.train_step(
+                # The phase's executable (parallel/aot.py), except for a
+                # first step that counts the phase's FLOPs.
+                train_fn = (self.train_step
+                            if first_call and self._perf is not None
+                            else self._phase_fns.get(phase_key,
+                                                     self.train_step))
+                step = lambda: train_fn(
                     self.state, batch, epoch, second_order=second_order,
                     use_msl=use_msl, health=want_health)
                 try:
@@ -519,6 +541,8 @@ class ExperimentBuilder:
                         self._perf.abort_window()
                     raise
                 self._phases_run.add(phase_key)
+                if not self._first_dispatch_noted:
+                    self._note_first_dispatch()
                 if sampling:
                     self._perf.end_window(self.current_iter, epoch=epoch,
                                           executable=card_name)
@@ -849,8 +873,16 @@ class ExperimentBuilder:
             # A crash bundle carries the cost cards once they are on disk.
             prev_profile = flightrec.register_profile(os.path.join(
                 self.paths["logs"], profiler_mod.PROFILE_FILE))
+        # The kernel build cache for the run (restored on return).
+        prev_cache = (build.set_cache_dir(cfg.compilation_cache_dir)
+                      if cfg.compilation_cache_dir else None)
+        self._run_started_at = time.time()
+        self._nvcc_at_start = build.nvcc_runs
+        self._first_dispatch_noted = False
         try:
             with numerics_policy(cfg.compute_dtype, deterministic=True):
+                # Captures run under the policy the steps run under.
+                self._adopt_aot_plan()
                 result = self._run_experiment()
             if (self._flightrec is not None
                     and "preempted_at_iter" in result):
@@ -903,6 +935,124 @@ class ExperimentBuilder:
                 # Release the writer's thread and file handle.
                 self._tb.close()
                 self._tb = None
+            if cfg.compilation_cache_dir:
+                build.set_cache_dir(prev_cache)
+
+    def _phase_order(self) -> List[Any]:
+        """The phase keys ``(second_order, use_msl)`` the remaining
+        schedule visits, in order."""
+        cfg = self.cfg
+        keys: List[Any] = []
+        for e in range(self.epoch, cfg.total_epochs):
+            key = (cfg.use_second_order(e), cfg.use_msl(e))
+            if key not in keys:
+                keys.append(key)
+        return keys
+
+    def _train_capture(self, key, epoch: int):
+        """A capture function of phase ``key``'s train step, on the
+        current state and a zero batch (what a replay reads is the
+        caller's), and the signature it is recorded under."""
+        batch = aot.zero_episode(self.cfg, self.cfg.padded_batch_size,
+                                 self.device)
+        return (lambda: aot.TrainGraph(self.cfg, self.train_step, key,
+                                       self.state, batch, epoch),
+                aot.signature_of(self.state, batch))
+
+    def _adopt_aot_plan(self) -> None:
+        """Warm-start adoption (parallel/aot.py): every phase key of the
+        remaining schedule and the eval step are probed in the store
+        (hits and misses counted); the first key's train step and the
+        eval step are captured now, under the compile deadline (a miss
+        is recorded for the next process), the later keys at their
+        phase boundary (:meth:`_adopt_deferred`). Fail-soft: a failed
+        capture leaves the eager step, counted."""
+        cfg = self.cfg
+        if not aot.enabled(cfg) or self._aot_store is not None:
+            return
+        for name in aot.COUNTERS:
+            self.registry.counter(name)
+        keys = [] if cfg.evaluate_on_test_set_only else self._phase_order()
+        stats: Dict[str, Any] = {"hits": 0, "misses": 0}
+        captures = 0
+        with watchdog.phase("compile", detail="aot_adopt"):
+            store = aot.AOTStore.from_config(
+                cfg, self.device, registry=self.registry,
+                writer=self.is_main_process)
+            self._aot_store = store
+            for i, key in enumerate(keys):
+                capture, sig = self._train_capture(key, self.epoch)
+                name = aot.train_exec_name(key)
+                if i == 0:
+                    fn, hit = aot.load_or_compile(
+                        store, name, capture, sig, registry=self.registry,
+                        fallback=self.train_step)
+                    self._phase_fns[key] = fn
+                else:
+                    hit = aot.probe(store, name, sig)
+                    self._deferred.add(key)
+                stats["hits" if hit else "misses"] += 1
+                captures += int(i == 0 and not hit)
+            batch = aot.zero_episode(cfg, cfg.effective_eval_batch_size,
+                                     self.device)
+            eager_eval = self.eval_step
+            self.eval_step, hit = aot.load_or_compile(
+                store, "eval",
+                lambda: aot.EvalGraph(eager_eval, self.state, batch),
+                aot.EvalGraph.signature(self.state, batch),
+                registry=self.registry, fallback=eager_eval)
+            stats["hits" if hit else "misses"] += 1
+            captures += int(not hit)
+        stats.update(fingerprint=store.fingerprint, store_dir=store.dir)
+        self._aot_stats = stats
+        self._captures_before_first_step = captures
+        if self.is_main_process:
+            print(f"warm start: {stats['hits']} executable(s) captured "
+                  f"from store records, {captures} captured and recorded"
+                  + (f", {len(self._deferred)} at their phase boundary"
+                     if self._deferred else "")
+                  + f" (store {store.dir})", flush=True)
+
+    def _adopt_deferred(self, key, epoch: int) -> None:
+        """Capture phase ``key``'s train step at its boundary (probed and
+        counted at adoption), on this thread with the loader idle."""
+        if key not in self._deferred:
+            return
+        self._deferred.discard(key)
+        capture, sig = self._train_capture(key, epoch)
+        with watchdog.phase("compile", detail=f"aot_phase{key}"):
+            self._phase_fns[key], _ = aot.load_or_compile(
+                self._aot_store, aot.train_exec_name(key), capture, sig,
+                registry=self.registry, fallback=self.train_step,
+                count_load=False)
+
+    def _note_first_dispatch(self) -> None:
+        """One ``warm_start`` row per session, after its first train step
+        returns: seconds from the run's start, and what was compiled
+        before it (kernel builds by nvcc, and graphs captured on store
+        misses), with the store's hits and misses when it is on."""
+        self._first_dispatch_noted = True
+        compiles = (build.nvcc_runs - self._nvcc_at_start
+                    + (self._captures_before_first_step or 0))
+        ttfs = (round(time.time() - self._run_started_at, 3)
+                if self._run_started_at is not None else None)
+        if ttfs is not None:
+            self.registry.gauge(
+                "warm_start/time_to_first_step_seconds").set(ttfs)
+        self.registry.gauge(
+            "warm_start/compiles_before_first_step").set(compiles)
+        row: Dict[str, Any] = {
+            "iter": self.current_iter,
+            "time_to_first_step_seconds": ttfs,
+            "compiles_before_first_step": compiles,
+            "nvcc_runs_before_first_step": (build.nvcc_runs
+                                            - self._nvcc_at_start),
+        }
+        if self._aot_stats is not None:
+            row.update(aot_hits=self._aot_stats["hits"],
+                       aot_misses=self._aot_stats["misses"],
+                       aot_fingerprint=self._aot_stats["fingerprint"][:16])
+        self.jsonl.log("warm_start", **row)
 
     def _install_cluster(self) -> Optional[cluster.ClusterFaultDomain]:
         """Install the pod fault domain (and, with ``elastic_mode=1``,

@@ -170,9 +170,15 @@ def per_step_loss_importance(cfg: MAMLConfig, epoch,
     """MSL importance weights ``(K,)`` f32 for ``epoch``: start uniform
     ``1/K``; each epoch move ``1/(K·msl_epochs)`` of mass from every
     non-final step to the final one; floor non-final weights at
-    ``0.03/K`` and cap the final weight to match."""
+    ``0.03/K`` and cap the final weight to match. ``epoch`` is a number,
+    or a 0-dim f32 tensor on the device that holds it (the train step's
+    :class:`meta.outer.StepScalars`, which a CUDA graph reads)."""
     k = cfg.number_of_training_steps_per_iter
-    epoch = torch.tensor(float(epoch), dtype=torch.float32, device=device)
+    if isinstance(epoch, torch.Tensor):
+        device = epoch.device
+    else:
+        epoch = torch.tensor(float(epoch), dtype=torch.float32,
+                             device=device)
     decay = 1.0 / k / cfg.multi_step_loss_num_epochs
     min_nonfinal = 0.03 / k
     nonfinal = torch.clamp(1.0 / k - epoch * decay, min=min_nonfinal)

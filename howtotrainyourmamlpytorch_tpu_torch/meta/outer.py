@@ -19,7 +19,10 @@ its state held as ``mu``/``nu`` trees over ``{"params", "lslr"}`` plus a
 count, so the JAX package's optimizer state carries over
 (``convert.state_from_jax``). The meta-LR and the bias corrections are
 computed on the host in float32, as the JAX package computes them on the
-device.
+device, and reach the step as 0-dim f32 device tensors with the MSL
+epoch (:class:`StepScalars`), filled before each step: a step captured
+into a CUDA graph (``parallel/aot.py``) reads the same buffers, so a
+replay uses the step's own values, never the captured step's.
 
 ``train_step(..., health=True)`` also returns the training-health
 diagnostics (``telemetry/health.py``) in ``StepMetrics.health``; the
@@ -103,30 +106,78 @@ def meta_lr_schedule(cfg: MAMLConfig) -> Callable[[int], float]:
     return schedule
 
 
+class StepScalars:
+    """The per-step host values a train step reads, as 0-dim f32 tensors
+    on its device: the MSL epoch, the negated meta-LR and Adam's bias
+    corrections of ``count + 1`` (with their f32 reciprocals).
+
+    :meth:`fill` writes them from the same f32 host values as before,
+    with fill kernels (no copy from host memory), outside any capture;
+    the eager step and a graph replay read them alike."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        zero = lambda: torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+        self.epoch, self.neg_lr = zero(), zero()
+        self.bc1, self.bc2, self.inv_bc1, self.inv_bc2 = (
+            zero(), zero(), zero(), zero())
+
+    @staticmethod
+    def host_values(cfg: MAMLConfig, count: int,
+                    epoch) -> Dict[str, float]:
+        """The f32 values :meth:`fill` writes, on the host."""
+        f32 = np.float32
+        c = int(count) + 1
+        bc1 = f32(1.0) - f32(cfg.meta_adam_beta1) ** f32(c)
+        bc2 = f32(1.0) - f32(cfg.meta_adam_beta2) ** f32(c)
+        return {"epoch": float(f32(float(epoch))),
+                "neg_lr": -meta_lr_schedule(cfg)(count),
+                "bc1": float(bc1), "bc2": float(bc2),
+                "inv_bc1": float(f32(1.0) / bc1),
+                "inv_bc2": float(f32(1.0) / bc2)}
+
+    def fill(self, cfg: MAMLConfig, count: int, epoch) -> "StepScalars":
+        for name, value in self.host_values(cfg, count, epoch).items():
+            getattr(self, name).fill_(value)
+        return self
+
+
+def _unbias(m: torch.Tensor, bc: torch.Tensor,
+            inv_bc: torch.Tensor) -> torch.Tensor:
+    """``m / bc`` as ATen computes a division by a host scalar: on the
+    card it multiplies by the f32 reciprocal, on the CPU it divides; the
+    tensors keep either arithmetic bitwise what it was with the Python
+    number."""
+    return m * inv_bc if m.is_cuda else m / bc
+
+
 def adam_init(trainable: Params) -> AdamState:
     return AdamState(count=0, mu=tree_map(torch.zeros_like, trainable),
                      nu=tree_map(torch.zeros_like, trainable))
 
 
 def adam_update(cfg: MAMLConfig, grads: Params, opt: AdamState,
-                trainable: Params) -> Tuple[Params, AdamState]:
+                trainable: Params, scalars: Optional[StepScalars] = None
+                ) -> Tuple[Params, AdamState]:
     """One ``optax.adam(meta_lr_schedule)`` step: ``mu = (1−b1)·g +
     b1·mu``, ``nu = (1−b2)·g² + b2·nu``, bias corrections with
     ``count+1``, ``u = mu_hat / (sqrt(nu_hat) + eps)`` scaled by
-    ``−lr(count)``, then ``p + u``. Returns the new trainables and state."""
+    ``−lr(count)``, then ``p + u``. Returns the new trainables and state.
+    ``scalars``: the step's filled :class:`StepScalars` (default: filled
+    here from ``opt.count``)."""
     b1, b2, eps = cfg.meta_adam_beta1, cfg.meta_adam_beta2, cfg.meta_adam_eps
-    f32 = np.float32
-    neg_lr = -meta_lr_schedule(cfg)(opt.count)
-    count = opt.count + 1
-    bc1 = float(f32(1.0) - f32(b1) ** f32(count))
-    bc2 = float(f32(1.0) - f32(b2) ** f32(count))
+    if scalars is None:
+        scalars = StepScalars(tree_leaves(trainable)[0].device).fill(
+            cfg, opt.count, 0)
     mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, opt.mu)
     nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, opt.nu)
     new = tree_map(
-        lambda p, m, v: p + neg_lr * ((m / bc1) / (torch.sqrt(v / bc2)
-                                                   + eps)),
+        lambda p, m, v: p + scalars.neg_lr * (
+            _unbias(m, scalars.bc1, scalars.inv_bc1)
+            / (torch.sqrt(_unbias(v, scalars.bc2, scalars.inv_bc2)) + eps)),
         trainable, mu, nu)
-    return new, AdamState(count=count, mu=mu, nu=nu)
+    return new, AdamState(count=opt.count + 1, mu=mu, nu=nu)
 
 
 def init_train_state(cfg: MAMLConfig, model_init, seed: int,
@@ -421,7 +472,8 @@ def make_meta_gradients(cfg: MAMLConfig, apply_fn, *,
 def make_train_step(cfg: MAMLConfig, apply_fn, *,
                     reduce_axes=None) -> Callable[..., Any]:
     """Build ``train_step(state, batch, epoch, *, second_order, use_msl,
-    plain=False, health=False) -> (new_state, StepMetrics)``: the
+    plain=False, health=False, scalars=None) -> (new_state,
+    StepMetrics)``: the
     meta-gradients (:func:`make_meta_gradients`), LSLR gradients zeroed
     when they are not learnable, γ/β gradients zeroed when BNWB is off,
     the ±clamp on the network's gradients only, then Adam. ``health``
@@ -429,6 +481,10 @@ def make_train_step(cfg: MAMLConfig, apply_fn, *,
     meta-gradient before zeroing and clamp, update ratios and LSLR
     statistics of the updated state, per-step losses and the MSL
     weights.
+
+    ``scalars``: a :class:`StepScalars` the caller filled for this step
+    (a CUDA graph's); by default the step fills its own from
+    ``state.opt_state.count`` and ``epoch``.
 
     ``reduce_axes`` (a ``parallel.mesh.Mesh``): the batch is this rank's
     shard of the global batch; after the microbatch accumulation ONE
@@ -440,12 +496,21 @@ def make_train_step(cfg: MAMLConfig, apply_fn, *,
     schedule = meta_lr_schedule(cfg)
     learnable_lslr = cfg.effective_learnable_lslr
 
+    own: Dict[torch.device, StepScalars] = {}
+
     def train_step(state: MetaTrainState, batch: Episode, epoch, *,
                    second_order: bool, use_msl: bool, plain: bool = False,
-                   health: bool = False
+                   health: bool = False,
+                   scalars: Optional[StepScalars] = None
                    ) -> Tuple[MetaTrainState, StepMetrics]:
-        out = accumulate(state, batch, epoch, second_order=second_order,
-                         use_msl=use_msl, plain=plain, per_step=health)
+        if scalars is None:
+            device = batch.support_x.device
+            if device not in own:
+                own[device] = StepScalars(device)
+            scalars = own[device].fill(cfg, state.opt_state.count, epoch)
+        out = accumulate(state, batch, scalars.epoch,
+                         second_order=second_order, use_msl=use_msl,
+                         plain=plain, per_step=health)
         if reduce_axes is not None:
             out = _mesh_mean(out, reduce_axes)
         loss, acc, s_loss = out["loss"], out["acc"], out["s_loss"]
@@ -469,7 +534,7 @@ def make_train_step(cfg: MAMLConfig, apply_fn, *,
             with region("meta_update"):
                 new, opt = adam_update(cfg, grads, state.opt_state,
                                        {"params": state.params,
-                                        "lslr": state.lslr})
+                                        "lslr": state.lslr}, scalars)
             lr = schedule(state.step)
             if health:
                 diag.update(health_mod.update_health(

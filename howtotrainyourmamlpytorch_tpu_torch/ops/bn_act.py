@@ -25,7 +25,11 @@ batch with that task's own statistics (the JAX package's per-task
   plain version on any device (the tests and ``chip_smoke.py`` compare
   the kernel with it on the card).
 
-``launches`` counts kernel launches: one per :func:`_launch` call.
+``launches`` counts kernel launches: one per :func:`_launch` call that
+runs the kernel. A call made while the current stream is being captured
+into a CUDA graph (``parallel/aot.py``) runs nothing: it adds to
+``captured`` instead, the graph keeps how many it captured, and each
+replay adds that many to ``launches`` (:func:`count_replay`).
 """
 
 from __future__ import annotations
@@ -39,8 +43,12 @@ import torch
 from howtotrainyourmamlpytorch_tpu_torch.ops import build
 
 # Kernel launches since the last reset_launches(); incremented only where
-# the CUDA kernel is launched.
+# the CUDA kernel is launched, or by a graph replay for the launches it
+# captured.
 launches = 0
+# Launches recorded into CUDA graphs under capture (never reset: a
+# capture reads its own difference).
+captured = 0
 
 # The sum order (csrc/bn_act.cu): chunks of max(256, ceil(R/65535)) rows,
 # each column's chunk summed in 8 row lanes. Shared memory of a block: 16
@@ -57,6 +65,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def count_replay(n: int) -> None:
+    """A replay of a CUDA graph that captured ``n`` launches ran them."""
+    global launches
+    launches += n
 
 
 def _act(y: torch.Tensor, slope: float) -> torch.Tensor:
@@ -145,7 +159,7 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on x's device's current stream: one device
     kernel. ``mean`` and ``var`` are views of its one scratch buffer."""
-    global launches
+    global launches, captured
     _check(x, gamma, beta)
     gamma, beta = gamma.contiguous(), beta.contiguous()
     r, p = x.shape
@@ -171,7 +185,10 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         torch.cuda._maybe_exchange_device(prev)
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed: CUDA error {err}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return y, scratch[:p], scratch[p:2 * p]
 
 

@@ -9,6 +9,13 @@ built when a module is imported: only a kernel launch asks for its
 library. That first launch falls inside a train step, so a cold build
 runs under the watchdog's ``compile`` phase (its budget,
 ``watchdog_compile_timeout_s``, not the step's); a cached load does not.
+
+The kernel build cache (``compilation_cache_dir``, :func:`set_cache_dir`):
+with a directory set, libraries are built into and loaded from it
+instead of ``_build/``, under the same source-hash names, so a fresh
+process, or another rank on a shared directory, loads the library with
+no ``nvcc`` run. ``nvcc_runs`` counts, per process, the libraries
+built (a library found on disk is loaded with none).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import subprocess
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 from howtotrainyourmamlpytorch_tpu_torch.resilience import watchdog
 
@@ -44,6 +51,26 @@ class Built:
 
 _built: Dict[str, Built] = {}
 _lock = threading.Lock()
+# compilation_cache_dir when set (None: BUILD_DIR), and the per-process
+# count of libraries built by nvcc.
+_cache_dir: Optional[str] = None
+nvcc_runs = 0
+
+
+def set_cache_dir(path: Optional[str]) -> Optional[str]:
+    """Build into and load from ``path`` (``None``: ``_build/``); returns
+    the previous directory. Libraries already loaded in this process
+    stay loaded: their names carry their source's hash either way."""
+    global _cache_dir
+    with _lock:
+        prev = _cache_dir
+        _cache_dir = os.path.abspath(path) if path else None
+        return prev
+
+
+def cache_dir() -> str:
+    """Where :func:`load` builds and looks for libraries."""
+    return _cache_dir or BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -60,14 +87,16 @@ def _nvcc() -> str:
 
 def load(name: str) -> Built:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    global nvcc_runs
     with _lock:
         if name in _built:
             return _built[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
         with open(src, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+        directory = cache_dir()
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f"lib{name}-{digest}.so")
         seconds, log = 0.0, ""
         if not os.path.exists(path):
             tmp = f"{path}.{os.getpid()}.tmp"
@@ -81,6 +110,7 @@ def load(name: str) -> Built:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}) building {src}:\n{log}")
             os.replace(tmp, path)  # atomic: concurrent builds agree
+            nvcc_runs += 1
         built = Built(lib=ctypes.CDLL(path), path=path, seconds=seconds,
                       log=log)
         _built[name] = built

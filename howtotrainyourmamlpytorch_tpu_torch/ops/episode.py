@@ -7,14 +7,25 @@ with the dataset's constants (``cfg.image_norm_resolved``). Images stay
 NHWC here; float inputs pass through untouched. Requests cross to the
 device as uint8 (4x fewer bytes than f32) and are decoded there. The
 episode decode runs under the ``episode_normalize`` profiler label.
+The constants are made on a device once and kept (:func:`_constant`):
+a step captured into a CUDA graph must not copy from the host.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import region
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(values, device: torch.device) -> torch.Tensor:
+    """``values`` as an f32 tensor on ``device``, made once per device
+    (nothing writes to it)."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def normalize_images(cfg: MAMLConfig, x: torch.Tensor) -> torch.Tensor:
@@ -26,8 +37,8 @@ def normalize_images(cfg: MAMLConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.reverse_channels:
         xf = xf.flip(-1)
     if not identity:
-        xf = ((xf - torch.tensor(mean, dtype=torch.float32, device=x.device))
-              * torch.tensor(inv_std, dtype=torch.float32, device=x.device))
+        xf = ((xf - _constant(tuple(mean), x.device))
+              * _constant(tuple(inv_std), x.device))
     return xf
 
 

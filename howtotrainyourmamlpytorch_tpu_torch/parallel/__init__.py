@@ -1,6 +1,6 @@
 """The device mesh over ranks and the multi-process agreement around it
-(the port's counterpart of the JAX package's ``parallel/``; the AOT
-store, ``parallel/aot.py``, is not ported)."""
+(the port's counterpart of the JAX package's ``parallel/``); the
+warm-start store of CUDA-graph executables is ``parallel/aot.py``."""
 
 from howtotrainyourmamlpytorch_tpu_torch.parallel.mesh import (
     Mesh,

@@ -51,9 +51,15 @@ scope restores the previous phase on exit, so an idle engine sits in
 phases the engine stamps. ``close`` (or the engine's collection) stops
 it and restores the process's previous beacon and recorder.
 
-Not ported: the AOT executable store and the persistent compile cache
-(``aot_store_dir``, ``compilation_cache_dir``: eager PyTorch has no
-executables to store); both knobs raise here.
+Warm start (``parallel/aot.py``, the JAX engine's
+``_adopt_serve_bucket``): ``compilation_cache_dir`` is the kernel build
+cache while the engine lives. With ``aot_store_dir`` (the card only: a
+``ValueError`` on the CPU) each bucket's adapt and predict run as CUDA
+graphs, one per support extent and one per query extent, captured by
+``warmup`` (or at a bucket's first use): from the store's records (hits)
+or captured and recorded (misses). A capture's one run on zero requests
+counts as an adapt or predict run (``adapt_runs``, ``predict_runs``);
+the hot-swap canary replays the same graphs on the candidate's state.
 """
 
 from __future__ import annotations
@@ -82,6 +88,8 @@ from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
     MetaTrainState, init_train_state, migrate_lslr_rows,
     reconcile_loaded_shapes, state_leaf_shapes)
 from howtotrainyourmamlpytorch_tpu_torch.models import make_model
+from howtotrainyourmamlpytorch_tpu_torch.ops import build
+from howtotrainyourmamlpytorch_tpu_torch.parallel import aot
 from howtotrainyourmamlpytorch_tpu_torch.resilience import (flightrec,
                                                             watchdog)
 from howtotrainyourmamlpytorch_tpu_torch.serve.adapt import (
@@ -142,18 +150,6 @@ class FewShotResponse:
     status: str = "ok"
 
 
-def _check_ported(cfg: MAMLConfig) -> None:
-    """Refuse the config knobs whose serving behaviour is not ported: an
-    engine must not quietly do less than its config says."""
-    on = [k for k in ("aot_store_dir", "compilation_cache_dir")
-          if getattr(cfg, k)]
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)} not ported to the PyTorch engine (eager "
-            f"PyTorch has no executables to store; ROADMAP.md, Queue 1 "
-            f"item 7: AOT/compile-cache slice)")
-
-
 def _to_host(tree: Any) -> Any:
     """A tensor tree as numpy arrays (the L2 tier's leaves)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
@@ -166,9 +162,9 @@ class ServingEngine:
                  device: DeviceLike = None,
                  registry: Optional[MetricsRegistry] = None,
                  state_context: str = ""):
-        _check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        aot.require_card(cfg, self.device)
         self.model_init, self.model_apply = make_model(cfg)
         self.num_adapt_steps = cfg.effective_serve_adapt_steps
         self.state = state.to(self.device)
@@ -252,6 +248,20 @@ class ServingEngine:
         # registry while it lives (restored on close).
         self._prev_resilience_registry = resilience.set_registry(
             self.registry)
+        # Warm start (parallel/aot.py). The fingerprint hashes the
+        # resolved task_microbatches, as the trainer's and the prewarm
+        # script's do, so all three open the same store directory.
+        self._prev_cache_dir = (build.set_cache_dir(cfg.compilation_cache_dir)
+                                if cfg.compilation_cache_dir else None)
+        self._aot_store = aot.AOTStore.from_config(
+            cfg.replace(
+                task_microbatches=cfg.effective_task_microbatches()),
+            self.device, registry=self.registry)
+        if self._aot_store is not None:
+            for name in aot.COUNTERS:
+                self.registry.counter(name)
+        self._aot_adapt: Dict[int, Any] = {}    # support rows -> exec
+        self._aot_predict: Dict[int, Any] = {}  # query rows -> exec
         self._closed = False
         self._reqtrace_ring: Optional[reqtrace.SpanRing] = None
         self._prev_reqtrace: Optional[reqtrace.SpanRing] = None
@@ -362,6 +372,8 @@ class ServingEngine:
         if not self._closed:
             self._closed = True
             resilience.set_registry(self._prev_resilience_registry)
+            if self.cfg.compilation_cache_dir:
+                build.set_cache_dir(self._prev_cache_dir)
         if self._reqtrace_ring is not None:
             reqtrace.install(self._prev_reqtrace)
             self._reqtrace_ring = None
@@ -409,6 +421,7 @@ class ServingEngine:
             # The first call per bucket pays for the kernel's build and
             # cuDNN's setup: the compile budget, not the request's.
             with watchdog.phase("compile", detail=f"serve{(s_b, q_b)}"):
+                self._adopt_serve_bucket((s_b, q_b))
                 req = FewShotRequest(
                     support_x=np.zeros((s_b, h, w, c), dtype),
                     support_y=np.zeros((s_b,), np.int32),
@@ -582,6 +595,55 @@ class ServingEngine:
             out.extend(self.step())
         return out
 
+    # -- warm start --------------------------------------------------------
+    def _adopt_serve_bucket(self, bucket: Tuple[int, int]) -> None:
+        """The bucket's adapt and predict executables from the store
+        (parallel/aot.py § load_or_compile: a hit is captured from its
+        record, a miss captured and recorded). Shared extents share an
+        executable. A capture's run is one adapt or predict run."""
+        self._adopt_exec("adapt", bucket[0])
+        self._adopt_exec("predict", bucket[1])
+
+    def _adopt_exec(self, kind: str, rows: int) -> None:
+        """One adapt (``rows`` support rows) or predict (``rows`` query
+        rows) executable, unless it is adopted already or the store is
+        off."""
+        store = self._aot_store
+        table = self._aot_adapt if kind == "adapt" else self._aot_predict
+        if store is None or rows in table:
+            return
+        if kind == "adapt":
+            name, body = aot.serve_adapt_name(rows), self._adapt_body
+            args = aot.serve_adapt_args(self.cfg, self.state, rows,
+                                        self.device)
+        else:
+            name, body = aot.serve_predict_name(rows), self._predict_body
+            args = aot.serve_predict_args(self.cfg, self.state, rows,
+                                          self.device)
+        with numerics_policy(self.cfg.compute_dtype, deterministic=False):
+            table[rows], _ = aot.load_or_compile(
+                store, name, lambda: aot.GraphExec(name, body, args),
+                aot.signature_of(*args), registry=self.registry,
+                fallback=body)
+        warmups = getattr(getattr(table[rows], "compiled", None),
+                          "warmups", 0)
+        if kind == "adapt":
+            self.adapt_runs += warmups
+        else:
+            self.predict_runs += warmups
+
+    def _adapt_body(self, params, lslr, bn_state, support_x, support_y,
+                    support_w) -> AdaptedTask:
+        return adapt_task(self.cfg, self.model_apply, params, lslr,
+                          bn_state, support_x, support_y, support_w,
+                          num_steps=self.num_adapt_steps)
+
+    def _predict_body(self, params, fast, bn_state, query_x
+                      ) -> torch.Tensor:
+        return predict_tasks(self.cfg, self.model_apply, params, fast,
+                             bn_state, query_x,
+                             num_steps=self.num_adapt_steps)
+
     # -- batched compute -------------------------------------------------
     @staticmethod
     def _entry(adapted: AdaptedTask, j: int) -> AdaptedTask:
@@ -601,14 +663,18 @@ class ServingEngine:
         ``record=False`` (warm-up, canary) keeps it out of the request
         timings; ``state`` overrides the live state (the canary)."""
         state = self.state if state is None else state
+        s_b = batch["support_x"].shape[1]
+        if self._aot_store is not None and s_b not in self._aot_adapt:
+            with watchdog.phase("compile", detail=f"serve_adapt{s_b}"):
+                self._adopt_exec("adapt", s_b)
+        adapt = self._aot_adapt.get(s_b, self._adapt_body)
         t0 = time.perf_counter()
         with numerics_policy(self.cfg.compute_dtype, deterministic=False):
-            adapted = adapt_task(
-                self.cfg, self.model_apply, state.params, state.lslr,
-                state.bn_state, self._to_device(batch["support_x"]),
+            adapted = adapt(
+                state.params, state.lslr, state.bn_state,
+                self._to_device(batch["support_x"]),
                 self._to_device(batch["support_y"], torch.long),
-                self._to_device(batch["support_w"]),
-                num_steps=self.num_adapt_steps)
+                self._to_device(batch["support_w"]))
             synchronize(self.device)
         self.adapt_runs += 1
         if record:
@@ -635,13 +701,15 @@ class ServingEngine:
             qx[i, :req.num_query] = req.query_x
         for i in range(len(group), b):
             qx[i] = qx[0]
+        if self._aot_store is not None and q_b not in self._aot_predict:
+            with watchdog.phase("compile", detail=f"serve_predict{q_b}"):
+                self._adopt_exec("predict", q_b)
+        predict = self._aot_predict.get(q_b, self._predict_body)
         t0 = time.perf_counter()
         with numerics_policy(self.cfg.compute_dtype, deterministic=False):
-            logits = predict_tasks(
-                self.cfg, self.model_apply, state.params,
-                stack([e.fast for e in padded]),
-                stack([e.bn_state for e in padded]), self._to_device(qx),
-                num_steps=self.num_adapt_steps)
+            logits = predict(state.params, stack([e.fast for e in padded]),
+                             stack([e.bn_state for e in padded]),
+                             self._to_device(qx))
             logits = logits.cpu().numpy()
         self.predict_runs += 1
         if record:

@@ -56,11 +56,13 @@ sockets or real processes (tests/test_fleet_supervisor.py).
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
 import random
 import time
+import weakref
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional
 
@@ -258,6 +260,10 @@ class ReplicaSupervisor:
             s: {"state": EMPTY, "proc": None, "started_at": 0.0,
                 "next_spawn_at": 0.0, "drained_at": 0.0}
             for s in range(self.scale_max)}
+        # A supervisor never stopped still ends its replicas when the
+        # process exits (SystemExit too: a harness turns SIGTERM into
+        # one, utils/reaper.py), killed and waited on.
+        atexit.register(_stop_at_exit, weakref.ref(self))
         if registry is not None:
             for name in (RESTARTS_COUNTER, CRASH_LOOPS_COUNTER,
                          SCALE_UPS_COUNTER, SCALE_DOWNS_COUNTER):
@@ -547,11 +553,21 @@ class ReplicaSupervisor:
                     proc.kill()
                 except OSError:
                     pass
+            try:
+                proc.wait()   # reaped, not left a zombie
+            except Exception:  # noqa: BLE001 — an injected handle
+                pass
         for slot, rec in self.slots.items():
             if rec["proc"] is not None:
                 self._cleanup_slot_files(slot)
             rec.update(state=(FAILED if rec["state"] == FAILED
                               else EMPTY), proc=None)
+
+
+def _stop_at_exit(ref) -> None:
+    sup = ref()
+    if sup is not None:
+        sup.stop()
 
 
 # Lease classification goes through the router module so the boundary

@@ -1,0 +1,79 @@
+"""Child processes that end with the process that started them.
+
+A harness (``scripts/torch_chaos_fleet.py``, ``torch_chaos_pod.py``,
+``torch_fleet_bench.py``, ``torch_traffic_replay.py``) starts replicas or
+ranks. When it exits, returns, raises or is sent SIGTERM (a caller's time
+limit), every process it started is terminated, killed after a grace
+and waited on: nothing it started outlives it.
+
+    from howtotrainyourmamlpytorch_tpu_torch.utils import reaper
+    reaper.install()                 # in main(): atexit + SIGTERM
+    proc = reaper.track(subprocess.Popen(...))
+
+``install`` turns SIGTERM into ``SystemExit(143)`` on the main thread,
+so ``finally`` blocks and the exit hook run; a handler someone else
+installed is left alone. Stdlib only.
+"""
+
+from __future__ import annotations
+
+import atexit
+import signal
+import threading
+import time
+from typing import Any, List
+
+# Processes tracked in this process (a harness's, by contract).
+_procs: List[Any] = []
+_lock = threading.Lock()
+_installed = False
+
+
+def track(proc: Any) -> Any:
+    """Reap ``proc`` (anything with ``poll``, ``terminate``, ``kill`` and
+    ``wait``) when this process exits; returns it."""
+    with _lock:
+        _procs[:] = [p for p in _procs if p.poll() is None]
+        _procs.append(proc)
+    return proc
+
+
+def reap(grace_s: float = 5.0) -> int:
+    """Terminate every tracked process still running, kill what is left
+    after ``grace_s`` and wait on each; returns how many were running."""
+    with _lock:
+        live = [p for p in _procs if p.poll() is None]
+        _procs.clear()
+    for p in live:
+        try:
+            p.terminate()
+        except OSError:
+            pass
+    deadline = time.monotonic() + grace_s
+    for p in live:
+        while p.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if p.poll() is None:
+            try:
+                p.kill()
+            except OSError:
+                pass
+        p.wait()
+    return len(live)
+
+
+def _on_sigterm(signum, frame) -> None:
+    raise SystemExit(128 + signal.SIGTERM)
+
+
+def install() -> None:
+    """Reap at interpreter exit, and make SIGTERM an exit that does
+    (main thread only; an existing non-default handler is kept)."""
+    global _installed
+    if _installed:
+        return
+    _installed = True
+    atexit.register(reap)
+    if threading.current_thread() is threading.main_thread():
+        if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, None):
+            signal.signal(signal.SIGTERM, _on_sigterm)

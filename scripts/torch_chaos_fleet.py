@@ -97,6 +97,7 @@ from howtotrainyourmamlpytorch_tpu_torch.serve.fleet import (  # noqa: E402
     supervisor as _supervisor_mod)
 from howtotrainyourmamlpytorch_tpu_torch.telemetry import (  # noqa: E402
     alerts as _alerts_mod)
+from howtotrainyourmamlpytorch_tpu_torch.utils import reaper  # noqa: E402
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +195,7 @@ def make_spawn(out: str, cfg_path: str, ckpt_dir: str, fleet_dir: str,
                 else os.path.join(out, "no_such_checkpoint"))
         log = open(os.path.join(out, f"replica_{slot}.log"), "a")
         try:
-            return subprocess.Popen(
+            return reaper.track(subprocess.Popen(
                 [sys.executable, "-m",
                  "howtotrainyourmamlpytorch_tpu_torch.serve.fleet.replica",
                  "--config", cfg_path, "--replica-id", str(slot),
@@ -202,7 +203,7 @@ def make_spawn(out: str, cfg_path: str, ckpt_dir: str, fleet_dir: str,
                  "--events",
                  os.path.join(out, f"events_replica_{slot}.jsonl"),
                  "--device", device],
-                cwd=_REPO, stdout=log, stderr=subprocess.STDOUT)
+                cwd=_REPO, stdout=log, stderr=subprocess.STDOUT))
         finally:
             log.close()  # the child holds its own inherited fd
     return spawn
@@ -731,6 +732,8 @@ def main(argv=None) -> int:
                     help="a trainer's saved_models to serve (copied); "
                          "default: a seeded random v1")
     args = ap.parse_args(argv)
+    # Every replica this harness starts ends with it, on SIGTERM too.
+    reaper.install()
 
     phases = [p.strip() for p in args.phases.split(",") if p.strip()]
     bad = set(phases) - {"kill", "crash_loop", "burst"}

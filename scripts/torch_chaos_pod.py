@@ -77,6 +77,8 @@ _SCRIPTS = os.path.dirname(os.path.abspath(__file__))
 if _REPO not in sys.path:
     sys.path.insert(0, _REPO)
 
+from howtotrainyourmamlpytorch_tpu_torch.utils import reaper  # noqa: E402
+
 NUM_PROCESSES = 2
 ELASTIC_PROCESSES = 3
 ELASTIC_KILL_HOST = 0
@@ -255,10 +257,10 @@ def launch_pod(out: str, cfg: dict, n: int, device: str, records: str,
         if fault_host is not None and r == fault_host:
             env["MAML_FAULTS"] = fault_spec
         log = open(os.path.join(out, f"{tag}{r}.log"), "w")
-        procs.append(subprocess.Popen(
+        procs.append(reaper.track(subprocess.Popen(
             [sys.executable, "-c", RANK_CHILD, _SCRIPTS, records, device,
              cfg_path] + list((extra or {}).get(r, [])),
-            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=_REPO))
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=_REPO)))
         log.close()
     return procs
 
@@ -772,6 +774,8 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=RUN_TIMEOUT_S,
                     help="each leg's limit in seconds for its ranks")
     args = ap.parse_args(argv)
+    # Every rank this harness starts ends with it, on SIGTERM too.
+    reaper.install()
     if args.device != "cpu":
         import torch
         if not torch.cuda.is_available():

@@ -27,12 +27,20 @@ its artifact contract, and no JAX:
    A box that cannot run two ranks (one core, or no localhost sockets)
    skips it with the reason recorded; so does a caller that runs the pod
    harness itself (``pod_legs=False``).
+7. **warm_restart** — ``scripts/torch_aot_prewarm.py`` fills a
+   warm-start store and a kernel build cache for this harness's config
+   (``parallel/aot.py``), then the CLI runs on them as a child: its
+   ``warm_start`` row must show at least one hit, no miss and nothing
+   compiled (no ``nvcc`` run, no graph captured on a miss) before its
+   first step. CUDA graphs need the card: on the CPU the leg is skipped
+   with that reason; a caller that runs it itself passes
+   ``warm_legs=False`` (or drives :func:`start_warm_restart_leg` and
+   :func:`finish_warm_restart_leg`).
 
 The ckpt_kill and hang restarts replay the same iterations from a
 committed checkpoint under the entry point's deterministic numerics
 policy, so their final weights and Adam state must be bitwise the
-baseline's; the artifact names any leaf that differs. ``warm_restart``
-is reported skipped with its reason.
+baseline's; the artifact names any leaf that differs.
 
 Geometry: ``--quick`` runs the JAX harness's tiny config (2 epochs x 4
 iterations, 10x10x1, 2 stages of 4 filters); otherwise the flagship JSON
@@ -98,11 +106,9 @@ HANG_DEADLINES = dict(watchdog_feed_timeout_s=6.0,
 # finishes and the artifact shows the wrong exit code.
 HANG_SECONDS = "120"
 POD_SCRIPT = os.path.join(_REPO, "scripts", "torch_chaos_pod.py")
-SKIPPED = {
-    "warm_restart": "eager PyTorch compiles nothing, so a restart has no "
-                    "executables to load (ROADMAP.md, Queue 1: "
-                    "AOT/compile-cache slice)",
-}
+PREWARM_SCRIPT = os.path.join(_REPO, "scripts", "torch_aot_prewarm.py")
+WARM_SKIP_CPU = ("CUDA graphs need the card: the warm-start store's "
+                 "executables cannot be captured on the CPU")
 
 # A subprocess run of the port's CLI on a device (the CLI itself runs on
 # the card; device="cpu" must be asked for from Python).
@@ -290,16 +296,117 @@ def run_peer_kill_phase(out: str, device: str, quick: bool) -> dict:
     }
 
 
+def last_warm_start_row(logs: str) -> dict:
+    """The last ``warm_start`` row of a run's ``events.jsonl`` (the most
+    recent session's)."""
+    rows = [e for e in read_events(logs) if e.get("event") == "warm_start"]
+    return rows[-1] if rows else {}
+
+
+def start_warm_restart_leg(out: str, device: str, quick: bool,
+                           popen=subprocess.Popen, prewarm_args=()) -> dict:
+    """Start the warm-restart leg: the prewarm script (with
+    ``prewarm_args``) on this harness's config (training health off, so
+    the steps replay their graphs), with a fresh store and kernel cache
+    under ``out``. Returns the leg's handle for
+    :func:`finish_warm_restart_leg`; ``popen`` starts each child (a
+    caller that reaps its children passes its own)."""
+    store = os.path.join(out, "warm_store")
+    cache = os.path.join(out, "warm_kernel_cache")
+    cfg = make_cfg(out, "chaos_warm", quick, health_metrics_every_n_steps=0,
+                   aot_store_dir=store, compilation_cache_dir=cache)
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "chaos_warm_prewarm.json")
+    with open(path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    proc = popen([sys.executable, PREWARM_SCRIPT, "--config", path,
+                  *prewarm_args],
+                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                 cwd=_REPO)
+    return {"cfg": cfg, "device": device, "prewarm": proc, "popen": popen,
+            "out": out}
+
+
+def _wait(proc, timeout: float):
+    """``(returncode, stdout, stderr)``; a child past ``timeout`` is
+    killed (returncode None)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        return proc.returncode, out, err
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        return None, out, err
+
+
+def finish_warm_restart_leg(leg: dict, timeout: float = 900.0) -> dict:
+    """Wait for the prewarm, then run the CLI on the warm store and read
+    its ``warm_start`` row: the JAX harness's ``warm_restart_*`` keys."""
+    cfg = leg["cfg"]
+    rc, out, err = _wait(leg["prewarm"], timeout)
+    prewarm = {}
+    for line in (out or "").strip().splitlines()[::-1]:
+        try:
+            prewarm = json.loads(line)
+            break
+        except json.JSONDecodeError:
+            continue
+    path = os.path.join(cfg.experiment_root, f"{cfg.experiment_name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    env = {k: v for k, v in os.environ.items() if k != "MAML_FAULTS"}
+    proc = leg["popen"]([sys.executable, "-c", CHILD, path, leg["device"],
+                         _REPO], stdout=subprocess.PIPE,
+                        stderr=subprocess.PIPE, text=True, cwd=_REPO,
+                        env=env)
+    cli_rc, _, cli_err = _wait(proc, timeout)
+    row = last_warm_start_row(os.path.join(cfg.experiment_root,
+                                           cfg.experiment_name, "logs"))
+    ok = bool(rc == 0 and prewarm.get("ok") and cli_rc == 0
+              and row.get("compiles_before_first_step") == 0
+              and (row.get("aot_hits") or 0) >= 1
+              and row.get("aot_misses") == 0)
+    return {
+        "warm_restart_skipped": None,
+        "warm_restart_prewarm_exit_code": rc,
+        "warm_restart_prewarm": {k: prewarm.get(k) for k in (
+            "ok", "hits", "misses", "failures", "seconds", "nvcc_runs",
+            "executables")},
+        "warm_restart_exit_code": cli_rc,
+        "warm_restart_compiles_before_first_step": row.get(
+            "compiles_before_first_step"),
+        "warm_restart_nvcc_runs_before_first_step": row.get(
+            "nvcc_runs_before_first_step"),
+        "warm_restart_aot_hits": row.get("aot_hits"),
+        "warm_restart_aot_misses": row.get("aot_misses"),
+        "warm_restart_time_to_first_step_s": row.get(
+            "time_to_first_step_seconds"),
+        "warm_restart_ok": ok,
+        "warm_restart_stderr_tail": (
+            None if ok else ((err or "")[-800:] + (cli_err or "")[-800:])),
+    }
+
+
+def run_warm_restart_leg(out: str, device: str, quick: bool) -> dict:
+    """The whole warm-restart leg, or its skip on the CPU."""
+    if device != "cuda":
+        return {"warm_restart_skipped": WARM_SKIP_CPU,
+                "warm_restart_ok": None}
+    return finish_warm_restart_leg(start_warm_restart_leg(out, device,
+                                                          quick))
+
+
 def counter_sum(phases, key) -> int:
     return int(sum(float(p["counters"].get(key) or 0) for p in phases))
 
 
 def chaos(out: str, device: str, quick: bool, tolerance: float = 0.4,
-          log=print, pod_legs: bool = True) -> dict:
+          log=print, pod_legs: bool = True, warm_legs: bool = True) -> dict:
     """Every phase; returns the artifact (plus, under ``"_phases"``, the
     in-process phases' records for callers that check more).
     ``pod_legs=False`` skips the peer_kill phase, for a caller that runs
-    ``scripts/torch_chaos_pod.py`` itself."""
+    ``scripts/torch_chaos_pod.py`` itself; ``warm_legs=False`` the
+    warm_restart phase, for a caller that runs it itself."""
     from howtotrainyourmamlpytorch_tpu_torch.resilience import EXIT_HUNG
 
     def cfg(name, **kw):
@@ -352,9 +459,14 @@ def chaos(out: str, device: str, quick: bool, tolerance: float = 0.4,
     if peer_kill["skipped"]:
         log(json.dumps({"phase": "peer_kill", "status": "skipped",
                         "reason": peer_kill["skipped"]}))
-    for phase, reason in SKIPPED.items():
-        log(json.dumps({"phase": phase, "status": "skipped",
-                        "reason": reason}))
+    announce("warm_restart")
+    warm = (run_warm_restart_leg(out, device, quick) if warm_legs else
+            {"warm_restart_skipped": "warm_legs=False: the caller runs "
+                                     "the warm restart itself",
+             "warm_restart_ok": None})
+    if warm["warm_restart_skipped"]:
+        log(json.dumps({"phase": "warm_restart", "status": "skipped",
+                        "reason": warm["warm_restart_skipped"]}))
 
     grad_norm_warns, warn_before_rewind = warn_precedes_rewind(
         read_events(os.path.join(out, "chaos_faulted", "logs")))
@@ -394,14 +506,20 @@ def chaos(out: str, device: str, quick: bool, tolerance: float = 0.4,
     chaos_delta = delta(restart)
     peer_kill_ok = (peer_kill["skipped"] is not None
                     or bool(peer_kill["recovered"]))
+    # The warm restart gates recovery when it ran; a skip is recorded
+    # with its reason.
+    warm_restart_ok = (warm["warm_restart_skipped"] is not None
+                       or bool(warm["warm_restart_ok"]))
     recovered = bool(
         preempted and rewinds >= 1 and io_retries >= 1
         and warn_before_rewind and chaos_delta is not None
         and chaos_delta <= tolerance
-        and ckpt_kill_recovered and hang_recovered and peer_kill_ok)
+        and ckpt_kill_recovered and hang_recovered and peer_kill_ok
+        and warm_restart_ok)
     recoveries = (int(preempted) + int(rewinds >= 1) + int(io_retries >= 1)
                   + int(ckpt_kill_recovered) + int(hang_recovered)
-                  + int(bool(peer_kill["recovered"])))
+                  + int(bool(peer_kill["recovered"]))
+                  + int(bool(warm["warm_restart_ok"])))
 
     def tail(proc, ok_code):
         return proc.stderr[-800:] if proc.returncode != ok_code else None
@@ -463,7 +581,9 @@ def chaos(out: str, device: str, quick: bool, tolerance: float = 0.4,
         "peer_kill_resumed_lines": peer_kill.get("resumed_lines"),
         "peer_kill_consensus_ok": peer_kill.get("consensus_ok"),
         "peer_kill_stderr_tail": peer_kill.get("stderr_tail"),
-        "warm_restart_skipped": SKIPPED["warm_restart"],
+        **{"warm_restart_compiles_before_first_step": None,
+           "warm_restart_aot_hits": None, "warm_restart_aot_misses": None,
+           "warm_restart_time_to_first_step_s": None, **warm},
         "tolerance": tolerance,
         "_phases": {"baseline": baseline, "faulted": faulted,
                     "restart": restart, "ckpt_kill_restart": ckpt_restart,

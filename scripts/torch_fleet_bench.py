@@ -67,6 +67,7 @@ from howtotrainyourmamlpytorch_tpu_torch.serve.loadlab.workloads import (  # noq
     synthetic_arrays, tenant_pool)
 from howtotrainyourmamlpytorch_tpu_torch.telemetry.registry import (  # noqa: E402
     MetricsRegistry)
+from howtotrainyourmamlpytorch_tpu_torch.utils import reaper  # noqa: E402
 from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import (  # noqa: E402
     JsonlLogger, nearest_rank, read_jsonl)
 
@@ -292,10 +293,10 @@ def prepare_checkpoint(out: str, cfg_path: str, ckpt_dir: str,
 
 def _run_child(mode: str, cfg_path: str, ckpt_dir: str, out: str):
     log = open(os.path.join(out, f"{mode}.log"), "w")
-    proc = subprocess.Popen(
+    proc = reaper.track(subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mode", mode,
          "--config-path", cfg_path, "--ckpt-dir", ckpt_dir, "--out", out],
-        cwd=_REPO, stdout=log, stderr=subprocess.STDOUT)
+        cwd=_REPO, stdout=log, stderr=subprocess.STDOUT))
     rc = proc.wait()
     log.close()
     if rc != 0:
@@ -375,14 +376,14 @@ def start_replicas(out: str, cfg_path: str, ckpt_dir: str,
     procs = {}
     for rid in ids:
         log = open(os.path.join(out, f"replica_{rid}.log"), "w")
-        procs[rid] = (subprocess.Popen(
+        procs[rid] = (reaper.track(subprocess.Popen(
             [sys.executable, "-m",
              "howtotrainyourmamlpytorch_tpu_torch.serve.fleet.replica",
              "--config", cfg_path, "--replica-id", str(rid),
              "--fleet-dir", fleet_dir, "--checkpoint", ckpt_dir,
              "--events", os.path.join(out, f"events_replica_{rid}.jsonl"),
              "--device", device],
-            cwd=_REPO, stdout=log, stderr=subprocess.STDOUT), log)
+            cwd=_REPO, stdout=log, stderr=subprocess.STDOUT)), log)
     return procs
 
 
@@ -995,6 +996,8 @@ def main(argv=None) -> int:
     ap.add_argument("--config-path", default=None)
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
+    # Every process this harness starts ends with it, on SIGTERM too.
+    reaper.install()
 
     if args.mode == "prepare":
         return _mode_prepare(args.config_path, args.ckpt_dir)

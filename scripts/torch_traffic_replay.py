@@ -89,6 +89,7 @@ from howtotrainyourmamlpytorch_tpu_torch.serve.fleet import (  # noqa: E402
     supervisor as _supervisor_mod)
 from howtotrainyourmamlpytorch_tpu_torch.serve.loadlab import (  # noqa: E402
     replay as _replay_mod, workloads as _workloads_mod)
+from howtotrainyourmamlpytorch_tpu_torch.utils import reaper  # noqa: E402
 from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import (  # noqa: E402
     JsonlLogger, nearest_rank)
 
@@ -604,6 +605,8 @@ def main(argv=None) -> int:
                     help="head-based request-trace sampling rate in "
                          "[0, 1]; 0 (default) = tracing off")
     args = ap.parse_args(argv)
+    # Every process this harness starts ends with it, on SIGTERM too.
+    reaper.install()
 
     require_card(args.device)
     duration = args.duration or (24.0 if args.quick else 60.0)

@@ -4,7 +4,9 @@
 phase: baseline, faulted ``io_write@1;nan_loss@5;kill@6``, restart,
 ckpt_kill, hang, and peer_kill through ``scripts/torch_chaos_pod.py``)
 must end ``"status": "recovered"`` with ``warm_restart`` reported skipped
-with its reason, the peer_kill leg's survivor exiting 73 naming host 1,
+on the CPU with its reason (CUDA graphs need the card; ``chip_smoke.py``
+phase 14 runs the leg on the card), the peer_kill leg's survivor exiting
+73 naming host 1,
 and its hang phase's
 run — ended by the watchdog, then restarted — must read in the JAX
 package's ``scripts/telemetry_report.py`` with a watchdog section of one
@@ -58,7 +60,12 @@ def test_quick_chaos_run_recovers(chaos):
     assert art["peer_kill_survivor_exit_code"] == 73
     assert art["peer_kill_suspect_hosts"] == [1]
     assert art["peer_kill_consensus_ok"]
-    assert "AOT/compile-cache slice" in art["warm_restart_skipped"]
+    assert "CUDA graphs need the card" in art["warm_restart_skipped"]
+    assert art["warm_restart_ok"] is None
+    for key in ("warm_restart_compiles_before_first_step",
+                "warm_restart_aot_hits", "warm_restart_aot_misses",
+                "warm_restart_time_to_first_step_s"):
+        assert key in art and art[key] is None
 
 
 def test_jax_report_reads_the_watchdog_killed_run(chaos):

@@ -115,3 +115,65 @@ def test_quick_pod_chaos_recovers(tmp_path):
     assert art["elastic_roster"] == [1, 2]
     assert art["elastic_report_elastic"]["reshards"] == 1
     assert art["elastic_bitwise_equal_cold"]
+
+
+def _session_members(sid):
+    """Live processes in the process group ``sid`` (read from /proc)."""
+    found = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rfind(")") + 2:].split()
+        if fields[0] != "Z" and int(fields[2]) == sid:
+            found.append(int(name))
+    return found
+
+
+def test_sigterm_to_the_harness_reaps_its_ranks(tmp_path):
+    """A harness leg sent SIGTERM (a caller's time limit) ends its ranks
+    before it exits: nothing of its process group is left alive."""
+    import glob
+    import signal
+    import time
+    env = {k: v for k, v in os.environ.items() if k != "MAML_FAULTS"}
+    env.setdefault("OMP_NUM_THREADS", "1")
+    out = tmp_path / "pod"
+    proc = subprocess.Popen(
+        [sys.executable, SCRIPT, "--quick", "--device", "cpu", "--out",
+         str(out), "--phases", "peer_kill", "--timeout", RANK_TIMEOUT],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL, start_new_session=True)
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and (
+                len(glob.glob(str(out / "*.log"))) < 2
+                or len(_session_members(proc.pid)) < 3):
+            assert proc.poll() is None, "the harness ended before its ranks"
+            time.sleep(0.1)
+        ranks = [p for p in _session_members(proc.pid) if p != proc.pid]
+        assert len(ranks) >= 2
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 128 + signal.SIGTERM
+        assert _session_members(proc.pid) == []
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def test_reaper_terminates_and_waits_on_what_it_tracks():
+    from howtotrainyourmamlpytorch_tpu_torch.utils import reaper
+    child = reaper.track(subprocess.Popen(
+        [sys.executable, "-c", "import time; time.sleep(60)"]))
+    done = reaper.track(subprocess.Popen([sys.executable, "-c", "pass"]))
+    done.wait(timeout=30)
+    assert reaper.reap(grace_s=5.0) == 1
+    assert child.returncode is not None and child.returncode != 0
+    assert reaper.reap() == 0

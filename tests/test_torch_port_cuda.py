@@ -226,6 +226,33 @@ def test_kernel_is_bitwise_deterministic(cuda_device, shape):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("shape", [STAGES[0], TRAIN_STAGES[0]])
+def test_kernel_call_captured_into_a_graph(cuda_device, shape):
+    """One call captured into a CUDA graph (``parallel/aot.py §
+    GraphExec``): each replay bitwise the eager call; the counter takes
+    the capture's eager warm-up, not the capture, and each replay's one
+    launch."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import aot
+    x, gamma, beta = _stage_inputs(shape, torch.bfloat16, cuda_device)
+
+    def call(x, gamma, beta):
+        with torch.no_grad():
+            return bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+
+    want = call(x, gamma, beta)
+    before, captured = bn_act.launches, bn_act.captured
+    graph = aot.GraphExec("bn_act", call, (x, gamma, beta))
+    assert graph.launches == 1 and bn_act.captured - captured == 1
+    assert bn_act.launches - before == 1
+    for i in range(3):
+        got = graph(x, gamma, beta)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+        assert bn_act.launches - before == 2 + i
+    with pytest.raises(TypeError, match="captured signature"):
+        graph(x[:-1], gamma, beta)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_unaligned_view_takes_scalar_path(cuda_device, dtype):
     """A contiguous view one element into its storage is not 16-byte

@@ -411,30 +411,57 @@ def test_get_args_rejects_what_jax_rejects(argv):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh_shape=(1, 2), require_mesh=1), dict(aot_store_dir="store"),
-    dict(compilation_cache_dir="cache"),
+    dict(mesh_shape=(1, 2), require_mesh=1),
     dict(cluster_collective_timeout_s=5.0),
     dict(cluster_collective_timeout_s=5.0, elastic_mode=1)],
     ids=lambda k: next(iter(k)))
 def test_unported_knob_raises(knob, tmp_path):
-    """Knobs of unported slices raise naming their ROADMAP item. The mesh
-    is ported: a mesh_shape that one process cannot realize raises under
-    require_mesh=1, with the JAX package's message. The pod fault domain
-    is ported too: its knobs build (and ``refuse_unported_knobs`` passes
-    them), as the JAX package's builder does."""
+    """The mesh is ported: a mesh_shape that one process cannot realize
+    raises under require_mesh=1, with the JAX package's message. The pod
+    fault domain is ported too: its knobs build, as the JAX package's
+    builder does. (The warm-start knobs: the next test.)"""
     if "cluster_collective_timeout_s" in knob:
         cfg = MAMLConfig(**_kw(tmp_path, **knob))
-        experiment.refuse_unported_knobs(cfg)
         builder = ExperimentBuilder(cfg, device="cpu")
         assert builder.cfg.cluster_collective_timeout_s == 5.0
         assert builder.cfg.elastic_mode == knob.get("elastic_mode", 0)
         return
-    if "mesh_shape" in knob:
-        err, match = ValueError, "only 1 are visible and require_mesh=1"
-    else:
-        err, match = NotImplementedError, "ROADMAP"
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError,
+                       match="only 1 are visible and require_mesh=1"):
         ExperimentBuilder(MAMLConfig(**_kw(tmp_path, **knob)), device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["aot_store_dir", "compilation_cache_dir"])
+def test_warm_start_knobs_on_the_cpu(knob, tmp_path):
+    """``aot_store_dir`` is CUDA graphs: on the CPU the builder refuses it
+    with a ``ValueError`` naming the card. ``compilation_cache_dir`` is
+    the kernel build cache for the run (set while it runs, restored
+    after); the run logs its ``warm_start`` row (no kernel built, nothing
+    captured: the CPU runs the plain version) and ends as without it."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import build
+    cfg = MAMLConfig(**_kw(tmp_path, **{knob: str(tmp_path / knob)}))
+    if knob == "aot_store_dir":
+        with pytest.raises(ValueError, match="which need the card"):
+            ExperimentBuilder(cfg, device="cpu")
+        return
+    before = build.cache_dir()
+    seen = []
+    builder = ExperimentBuilder(cfg.replace(total_epochs=1), device="cpu")
+    step = builder.train_step
+
+    def spy(*args, **kw):
+        seen.append(build.cache_dir())
+        return step(*args, **kw)
+
+    builder.train_step = spy
+    builder.run_experiment()
+    assert seen and set(seen) == {str(tmp_path / knob)}
+    assert build.cache_dir() == before
+    rows = [r for r in read_jsonl(os.path.join(builder.paths["logs"],
+                                               "events.jsonl"))
+            if r["event"] == "warm_start"]
+    assert len(rows) == 1 and rows[0]["compiles_before_first_step"] == 0
+    assert rows[0]["iter"] == 0 and "aot_hits" not in rows[0]
 
 
 @pytest.mark.parametrize("knob", [

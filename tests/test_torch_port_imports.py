@@ -39,10 +39,12 @@ PORT_FILES = sorted(
 ) + ["chip_smoke.py"] + sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
-PORT_SCRIPTS = ("torch_chaos_fleet", "torch_chaos_pod", "torch_chaos_run",
+PORT_SCRIPTS = ("torch_aot_prewarm", "torch_chaos_fleet", "torch_chaos_pod",
+                "torch_chaos_run",
                 "torch_ckpt_admin", "torch_dataset_pack",
                 "torch_fleet_bench", "torch_generate_scripts",
                 "torch_ops_console", "torch_perf_report",
+                "torch_perf_window_probe",
                 "torch_serve_bench", "torch_serve_profile",
                 "torch_slo_report", "torch_telemetry_report",
                 "torch_trace_export", "torch_traffic_replay")

@@ -246,17 +246,33 @@ def test_engine_needs_a_device_unless_cpu_is_asked_for():
                                   {"compilation_cache_dir": "xla_cache"},
                                   {"aot_store_dir": "aot",
                                    "compilation_cache_dir": "xla_cache"}])
-def test_engine_refuses_unported_knobs(knob):
-    """The AOT store and the persistent compile cache are not ported
-    (eager PyTorch has no executables): the engine refuses them, naming
-    each knob and the roadmap item, as the trainer does."""
-    cfg = MAMLConfig(**_kw(**knob))
+def test_engine_takes_the_warm_start_knobs(knob, tmp_path):
+    """The warm-start knobs (parallel/aot.py): ``aot_store_dir`` is CUDA
+    graphs, so on the CPU the engine refuses it with a ``ValueError``
+    naming the card (no quiet eager run); ``compilation_cache_dir`` is the
+    kernel build cache while the engine lives, restored on close, and the
+    engine serves as without it."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import build
+    cfg = MAMLConfig(**_kw(**{k: str(tmp_path / v) for k, v in knob.items()}))
     init, _ = make_model(cfg)
     state = init_train_state(cfg, init, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 "
-                                                  "item 7") as err:
-        ServingEngine(cfg, state, device="cpu")
-    assert all(k in str(err.value) for k in knob)
+    before = build.cache_dir()
+    if "aot_store_dir" in knob:
+        with pytest.raises(ValueError, match="which need the card"):
+            ServingEngine(cfg, state, device="cpu")
+        assert build.cache_dir() == before
+        return
+    with ServingEngine(cfg, state, device="cpu") as eng:
+        assert build.cache_dir() == str(tmp_path / "xla_cache")
+        eng.submit(_req())
+        (resp,) = eng.drain()
+        assert resp.status == "ok" and np.isfinite(resp.logits).all()
+        with ServingEngine(cfg.replace(compilation_cache_dir=None), state,
+                           device="cpu") as plain:
+            plain.submit(_req())
+            (want,) = plain.drain()
+        assert np.array_equal(resp.logits, want.logits)
+    assert build.cache_dir() == before
 
 
 # The port keeps its own copies of the numpy-only batcher and cache:
