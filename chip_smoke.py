@@ -243,11 +243,31 @@ failure:
    CLI on the warm store as a child, phase 5's length cuts: exit 0, hits
    > 0, no miss, no ``nvcc`` run; a cold CLI child beside (a) and (b)
    gives the cold time to first step.
+15. The autotuner (``tune_sweep``; ``tune/``, ``scripts/torch_autotune.py``)
+   on the flagship JSON at full width with the hand-written kernel and
+   remat 'dots' (``TUNE_BASE``: the shipped 'block_outs' is then a known
+   faster point of the same program), 3 timed steps per trial, over
+   ``TUNE_SPEC``: remat 'block_outs' x ``cudnn_deterministic`` false
+   and a value no option takes (the baseline and two trials); the
+   parity gate at its default tolerance, the accuracy gate skipped
+   (recorded) and ``--prove-warm-train``. The unknown value is counted
+   ``invalid_flag`` and the sweep goes on; every ``ok`` trial ran on the card with BN-kernel launches (added
+   to the kernel's entry); ``TUNED.json`` holds ``adopted`` and a
+   reason. The winner is known by construction: ('block_outs', false)
+   must be adopted, its parity bitwise, its ``bitwise_resume`` false,
+   and its warm train (the prewarmed tuned store, the trainer CLI on it)
+   must read ``compiles_before_first_step == 0``; the same command again
+   runs no trial; no process of the phase is left. Each trial's rate and
+   the winner are printed, not gated.
 
-Phases 6, 8 and 14 need nothing of the others: each runs in a child
+Phase 7's perf-row check also holds the port's sampler to its count of
+lost records: a row whose BN-kernel records fall short of the step's
+launches must count the shortfall in ``device_records_lost``.
+
+Phases 6, 8, 14 and 15 need nothing of the others: each runs in a child
 process (``chip_smoke.py --phase-child <name> <out>``) beside others, for
-run time (``PHASE_SCHEDULE``: 6 beside 3-5 and 7; 8 beside 9, 10 and
-12; 14 beside 9 and 10); phases 2, 11 and 13 run beside nothing.
+run time (``PHASE_SCHEDULE``: 6 and 15 beside 3-5 and 7; 8 beside 9, 10
+and 12; 14 beside 9 and 10); phases 2, 11 and 13 run beside nothing.
 
 Every child process starts in a session of its own through one helper
 (``_spawn``, ``_finish``, ``_child``), which ends the session (SIGTERM,
@@ -2458,7 +2478,8 @@ def _check_perf_row(r: dict, bn_per_step) -> None:
     """One ``perf_profile`` row: no records lost, fractions summing to 1,
     every label of its step, the step's BN-kernel records and an MFU in
     (0, 1]. Raises :class:`_RecordsDropped` when records are all that is
-    missing, AssertionError on any other defect."""
+    missing, AssertionError on any other defect, a shortfall of BN-kernel
+    records that ``device_records_lost`` does not count among them."""
     total = (r["device_compute_frac"] + r["device_idle_frac"]
              + r["dispatch_gap_frac"])
     missing = _expected_regions(r["top_executable"]) - set(
@@ -2468,6 +2489,12 @@ def _check_perf_row(r: dict, bn_per_step) -> None:
     said = (f"telemetry: perf row (fractions sum {total}, regions missing "
             f"{missing}, bn_act records {bn} of {want}, records lost "
             f"{r['device_records_lost']}) {r}")
+    if bn < want and r["device_records_lost"] < want - bn:
+        # The sampler knows the window's BN launches: a shortfall of
+        # their records is counted lost, at least (telemetry/profiler.py
+        # § window_records).
+        raise AssertionError(f"the sampler did not count the BN records' "
+                             f"shortfall as lost: {said}")
     if r["device_records_lost"]:
         raise _RecordsDropped(said)
     sound = (abs(total - 1) <= 1e-6 and bn <= want
@@ -5272,6 +5299,134 @@ def warm_start(entry: dict, card: str) -> None:
         raise AssertionError("phase 14: " + "; ".join(failures))
 
 
+TUNE_SCRIPT = os.path.join(REPO, "scripts", "torch_autotune.py")
+# Phase 15's base: the flagship JSON on the hand-written kernel, under
+# the slowest remat policy, so the sweep holds a known faster point (the
+# shipped 'block_outs', bitwise the same program).
+TUNE_BASE = {"bn_backend": "pallas", "remat_policy": "dots"}
+# The sweep's space: the shipped remat policy with cuDNN's
+# nondeterministic algorithms, and with a value no backend option
+# takes. Three trials: the baseline, the winner ('block_outs', false)
+# and an invalid flag.
+TUNE_SPEC = {"axes": [
+    {"name": "remat_policy", "values": ["block_outs"]},
+    {"name": "cudnn_deterministic", "kind": "xla",
+     "values": ["false", "fastest"]}]}
+TUNE_WINNER = ({"remat_policy": "block_outs"},
+               {"cudnn_deterministic": "false"})
+TUNE_STEPS = 3
+TUNE_TRIAL_TIMEOUT = 300
+TUNE_TIMEOUT = 900
+
+
+def _tune_artifact(tag: str, cmd, out: str) -> dict:
+    """Run the autotune driver as a child; its artifact (last line)."""
+    res = _child(tag, cmd, timeout=TUNE_TIMEOUT)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    for line in lines[:-1]:
+        print(f"{tag}: {line}", flush=True)
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"{tag}: exit {res.returncode}\n"
+                             f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+    art = json.loads(lines[-1])
+    if not (art.get("ok") and art.get("jax_free") and art.get("torch_free")):
+        raise AssertionError(f"{tag}: artifact {art}")
+    return art
+
+
+def tune_sweep(entry: dict, card: str) -> None:
+    """Phase 15: ``scripts/torch_autotune.py`` on the flagship JSON at
+    full width (``TUNE_BASE``; 3 timed steps per trial) over
+    ``TUNE_SPEC``, the parity gate at its default tolerance, the
+    accuracy gate skipped (recorded) and ``--prove-warm-train``; then the
+    same command again, which must run no trial. The unknown value is
+    counted ``invalid_flag`` and the sweep goes on; every ``ok`` trial
+    ran on the card with BN-kernel launches (added to ``entry``);
+    ``TUNED.json`` holds the verdict and its reason; ``TUNE_WINNER`` is
+    adopted with bitwise parity, and its warm train read no compile
+    before its first step; no process of the phase is left. Rates are printed, not
+    gated (the phase runs beside others)."""
+    import shutil
+
+    import torch
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, ".smoke_runs", f"tune_{os.getpid()}")
+    os.makedirs(root, exist_ok=True)
+    with open(FLAGSHIP) as f:
+        base = {**json.load(f), **TUNE_BASE,
+                "experiment_root": os.path.join(root, "exp")}
+    base_path = os.path.join(root, "base.json")
+    with open(base_path, "w") as f:
+        json.dump(base, f)
+    spec_path = os.path.join(root, "space.json")
+    with open(spec_path, "w") as f:
+        json.dump(TUNE_SPEC, f)
+    out = os.path.join(root, "sweep")
+    cmd = [sys.executable, TUNE_SCRIPT, "--config", base_path, "--out",
+           out, "--space", spec_path, "--platform", "cuda",
+           "--steps", str(TUNE_STEPS),
+           "--trial-timeout", str(TUNE_TRIAL_TIMEOUT),
+           "--accuracy-gate", "skip"]
+    art = _tune_artifact("tune sweep", cmd + ["--prove-warm-train"], out)
+    sweep_s = time.perf_counter() - t0
+    if (art["trials_total"] != 3 or art["trials_run"] != 3
+            or art["failed_by_outcome"] != {"invalid_flag": 1}
+            or art["invalid_flag_failures"] != 1):
+        raise AssertionError(f"tune sweep: trials {art}")
+    with open(art["ledger"]) as f:
+        rows = json.load(f)["trials"]
+    kind = torch.cuda.get_device_name(0)
+    launched = 0
+    for tid, row in rows.items():
+        print(f"tune trial {tid} {row['assignment']}: {row['outcome']}, "
+              f"{row.get('value')} tasks/s, {row.get('step_ms')} ms/step, "
+              f"{row.get('bn_launches')} BN launches, {row['seconds']} s "
+              f"of process ({card})", flush=True)
+        if row["outcome"] != "ok":
+            continue
+        if row.get("device_kind") != kind or not row.get("bn_launches"):
+            raise AssertionError(f"tune trial {tid} did not run the BN "
+                                 f"kernel on the card: {row}")
+        launched += row["bn_launches"]
+    with open(art["tuned_path"]) as f:
+        tuned = json.load(f)
+    if not isinstance(tuned.get("adopted"), bool) or not tuned.get("reason"):
+        raise AssertionError(f"tune: TUNED.json without a verdict {tuned}")
+    # The winner is known by construction ('block_outs' runs the same
+    # program as 'dots' at about twice the rate): it must be adopted,
+    # its parity bitwise and its warm train free of compiles.
+    warm, parity = art["warm_train"], art["gates"]["parity"]
+    best = art["best"] or {}
+    if not (tuned["adopted"] is True
+            and (best.get("config_overrides"),
+                 best.get("compiler_options")) == TUNE_WINNER
+            and parity.get("pass") is True
+            and parity.get("mode") == "bitwise"
+            and tuned.get("bitwise_resume") is False
+            and warm and warm.get("ok")
+            and warm.get("compiles_before_first_step") == 0
+            and warm.get("bitwise_resume") is False):
+        raise AssertionError(f"tune: winner {best}, verdict {tuned}, "
+                             f"parity {parity}, warm train {warm}")
+    print(f"tune: winner {art['best']}, adopted {tuned['adopted']} "
+          f"({tuned['reason']}); parity {art['gates']['parity']}; warm "
+          f"train {warm}; sweep {sweep_s:.1f} s ({card})", flush=True)
+    t1 = time.perf_counter()
+    again = _tune_artifact("tune resume", cmd, out)
+    if again["trials_run"] != 0 or again["trials_resumed"] != 3:
+        raise AssertionError(f"tune resume ran trials: {again}")
+    # Orphans of the driver's children come to this process (a
+    # subreaper) and are listed too.
+    left = _survivors()
+    if left:
+        raise AssertionError(f"tune: processes left {left}")
+    entry["launches"] += launched
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"tune: {launched} BN launches in the trials; resume "
+          f"{time.perf_counter() - t1:.1f} s; phase 15 "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+
 def _epoch_seconds(logs: str) -> list:
     """A run's epoch seconds from its ``summary_statistics.csv``."""
     from howtotrainyourmamlpytorch_tpu_torch.utils.storage import (
@@ -5310,15 +5465,16 @@ def _become_subreaper() -> None:
               f"tracked", flush=True)
 
 
-# Phases 6, 8 and 14 need nothing of the others: each runs in a child
-# process (``--phase-child``) beside other phases, for run time (the
+# Phases 6, 8, 14 and 15 need nothing of the others: each runs in a
+# child process (``--phase-child``) beside other phases, for run time (the
 # limit is 1200 s); the child's output is printed when it is joined, its
 # launches added to the kernel's entry. Phase 11's latency gates and
 # phase 13's leases run beside nothing.
 PHASE_CHILD_FLAG = "--phase-child"
 PHASE_SCHEDULE = (
-    ("start", "backbones"), ("run", "serve"), ("run", "train"),
-    ("run", "cli"), ("run", "telemetry"), ("join", "backbones"),
+    ("start", "backbones"), ("start", "tune"), ("run", "serve"),
+    ("run", "train"), ("run", "cli"), ("run", "telemetry"),
+    ("join", "backbones"), ("join", "tune"),
     ("start", "faults"), ("start", "warm"), ("run", "serving"),
     ("run", "data"), ("join", "warm"), ("run", "mesh"), ("join", "faults"),
     ("run", "fleet"), ("run", "pod"))
@@ -5327,7 +5483,7 @@ PHASE_CHILD_TIMEOUT = 900
 
 def _phase_children() -> dict:
     return {"backbones": other_backbones, "faults": fault_path,
-            "warm": warm_start}
+            "warm": warm_start, "tune": tune_sweep}
 
 
 def _start_phase_child(name: str) -> dict:

@@ -108,7 +108,8 @@ are asked for (the JAX trainer compiles those on a background thread).
 Steps with training health, and a phase's first step under the perf
 sampler (which counts its FLOPs), run eagerly. Each session logs one
 ``warm_start`` row after its first train step (time to it, kernel builds
-and graph misses captured before it, hits, misses) and sets the
+and graph misses captured before it, hits, misses, and whether the
+config's backend options keep the bitwise resume contract) and sets the
 ``warm_start/*`` gauges.
 """
 
@@ -132,6 +133,7 @@ from howtotrainyourmamlpytorch_tpu_torch.data.loader import (
     MetaLearningDataLoader)
 from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
                                                         numerics_policy,
+                                                        resume_is_bitwise,
                                                         synchronize)
 from howtotrainyourmamlpytorch_tpu_torch.meta.inner import (
     adapted_param_counts)
@@ -880,7 +882,8 @@ class ExperimentBuilder:
         self._nvcc_at_start = build.nvcc_runs
         self._first_dispatch_noted = False
         try:
-            with numerics_policy(cfg.compute_dtype, deterministic=True):
+            with numerics_policy(cfg.compute_dtype, deterministic=True,
+                                 options=cfg.xla_compiler_options_dict):
                 # Captures run under the policy the steps run under.
                 self._adopt_aot_plan()
                 result = self._run_experiment()
@@ -1047,6 +1050,10 @@ class ExperimentBuilder:
             "compiles_before_first_step": compiles,
             "nvcc_runs_before_first_step": (build.nvcc_runs
                                             - self._nvcc_at_start),
+            # False under backend options that give up the bitwise
+            # resume contract (a tuned config's cuDNN switches).
+            "bitwise_resume": resume_is_bitwise(
+                self.cfg.xla_compiler_options_dict),
         }
         if self._aot_stats is not None:
             row.update(aot_hits=self._aot_stats["hits"],

@@ -620,7 +620,8 @@ class ServingEngine:
             name, body = aot.serve_predict_name(rows), self._predict_body
             args = aot.serve_predict_args(self.cfg, self.state, rows,
                                           self.device)
-        with numerics_policy(self.cfg.compute_dtype, deterministic=False):
+        with numerics_policy(self.cfg.compute_dtype, deterministic=False,
+                             options=self.cfg.xla_compiler_options_dict):
             table[rows], _ = aot.load_or_compile(
                 store, name, lambda: aot.GraphExec(name, body, args),
                 aot.signature_of(*args), registry=self.registry,
@@ -669,7 +670,8 @@ class ServingEngine:
                 self._adopt_exec("adapt", s_b)
         adapt = self._aot_adapt.get(s_b, self._adapt_body)
         t0 = time.perf_counter()
-        with numerics_policy(self.cfg.compute_dtype, deterministic=False):
+        with numerics_policy(self.cfg.compute_dtype, deterministic=False,
+                             options=self.cfg.xla_compiler_options_dict):
             adapted = adapt(
                 state.params, state.lslr, state.bn_state,
                 self._to_device(batch["support_x"]),
@@ -706,7 +708,8 @@ class ServingEngine:
                 self._adopt_exec("predict", q_b)
         predict = self._aot_predict.get(q_b, self._predict_body)
         t0 = time.perf_counter()
-        with numerics_policy(self.cfg.compute_dtype, deterministic=False):
+        with numerics_policy(self.cfg.compute_dtype, deterministic=False,
+                             options=self.cfg.xla_compiler_options_dict):
             logits = predict(state.params, stack([e.fast for e in padded]),
                              stack([e.bn_state for e in padded]),
                              self._to_device(qx))

@@ -301,7 +301,8 @@ def _is_annotation(e) -> bool:
     return e.is_user_annotation() or "annotation" in _activity(e)
 
 
-def window_records(events: List[Any]) -> Window:
+def window_records(events: List[Any],
+                   bn_launches: Optional[int] = None) -> Window:
     """Split a profiler window's raw records (``kineto_results.events()``)
     into device records, region labels, the window span and the lane.
 
@@ -321,8 +322,14 @@ def window_records(events: List[Any]) -> Window:
     kernel) but no device record launched under it lost its tail, and
     ``lost`` then also counts the host operators (runtime calls aside)
     that started after the last recorded launch (the sentinel's among
-    them, so at least one).
-    The sentinel's own kernel is not one of the records."""
+    them, so at least one). The tracer also drops device records
+    together with their launch records, which nothing above sees:
+    ``bn_launches``, the BN kernel's launches in the window
+    (``ops/bn_act.py § launches``), bounds that loss, and a window
+    whose ``bn_act`` device records fall short of them counts at least
+    the shortfall as lost (``lost`` is then the larger of the two
+    counts: a dropped BN record may be one of the launches already
+    counted). The sentinel's own kernel is not one of the records."""
     from torch.autograd import DeviceType
     launches: Dict[Tuple[int, int], int] = {}
     labels: List[Tuple[str, int, int]] = []
@@ -375,6 +382,10 @@ def window_records(events: List[Any]) -> Window:
                                    if e.start_ns() > last
                                    and in_window(e.start_ns())
                                    and not e.name().startswith("cuda")))
+        if bn_launches is not None:
+            recorded_bn = sum(1 for r in records
+                              if kernel_family(r[0]) == "bn_act")
+            lost = max(lost, bn_launches - recorded_bn)
         return Window(records, labels, window, "cuda", lost)
     records = []
     cpu_ops.sort(key=lambda e: (e.start_thread_id(), e.start_ns(),
@@ -521,6 +532,12 @@ def attach_card(summary: Dict[str, Any], executable: Optional[str],
 # ---------------------------------------------------------------------------
 # Live capture.
 
+def _bn_launches() -> int:
+    """The BN kernel's launch count (``ops/bn_act.py § launches``)."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    return bn_act.launches
+
+
 class PerfSampler:
     """The experiment loop's sampling half: cadence bookkeeping, a
     ``torch.profiler`` capture around one train step, and publication
@@ -547,8 +564,10 @@ class PerfSampler:
         self.peaks = resolve_peaks(self.kind)
         self.cards = cards if cards is not None else {}
         self._last_iter: Optional[int] = None
-        # (profiler, marker, t0) while a capture is live.
+        # (profiler, marker, t0) while a capture is live, and the BN
+        # kernel's launch count when it opened.
         self._window: Optional[Tuple[Any, Any, float]] = None
+        self._bn_at_start = 0
         # The closing sentinel kernel's tensor (on the card only).
         self._sentinel: Optional[torch.Tensor] = None
         self._warned = False
@@ -602,6 +621,7 @@ class PerfSampler:
             self._await_tracer()
             marker = torch.profiler.record_function(WINDOW_MARKER)
             marker.__enter__()
+            self._bn_at_start = _bn_launches()
         except Exception as e:  # noqa: BLE001
             if prof is not None:
                 with contextlib.suppress(Exception):
@@ -647,7 +667,9 @@ class PerfSampler:
                 wall = time.perf_counter() - t0
             finally:
                 prof.__exit__(None, None, None)
-            win = window_records(prof.profiler.kineto_results.events())
+            win = window_records(prof.profiler.kineto_results.events(),
+                                 bn_launches=(_bn_launches()
+                                              - self._bn_at_start))
             if not win.records:
                 raise RuntimeError("the profiler recorded no device "
                                    "activity in the window")

@@ -38,10 +38,12 @@ def _safe_extract(zip_path: str, dest_dir: str) -> None:
         zf.extractall(dest_dir)
 
 
-def maybe_unzip_dataset(cfg) -> bool:
+def maybe_unzip_dataset(cfg, require: bool = False) -> bool:
     """Ensure ``cfg.dataset_dir`` is populated from a local zip if one is
     there; True when the directory is ready, False when the data layer
-    will fall back to a synthetic source."""
+    will fall back to a synthetic source, unless ``require``, which
+    raises ``FileNotFoundError`` with the provisioning instructions
+    instead."""
     if cfg.download_datasets:
         raise NotImplementedError(
             "download_datasets=True: the port has no dataset fetcher "
@@ -56,6 +58,12 @@ def maybe_unzip_dataset(cfg) -> bool:
         os.path.join(os.path.dirname(stem) or ".", cfg.dataset_name + ".zip"),
     ]))
     zip_path = next((c for c in candidates if os.path.isfile(c)), None)
+    if zip_path is None and require:
+        raise FileNotFoundError(
+            f"dataset {cfg.dataset_name!r} not found: no directory at "
+            f"{path!r}, no zip at {candidates}, and the port has no "
+            f"fetcher. Place the packaged zip at "
+            f"{candidates[0]!r} or the extracted splits under {path!r}.")
     if zip_path is None:
         return False
     # Zips may nest everything under a top-level <dataset_name>/ dir or

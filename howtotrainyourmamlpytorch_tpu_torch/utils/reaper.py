@@ -10,6 +10,10 @@ and waited on: nothing it started outlives it.
     reaper.install()                 # in main(): atexit + SIGTERM
     proc = reaper.track(subprocess.Popen(...))
 
+A child started in a session of its own (``start_new_session=True``)
+is tracked as its whole process group: ``reaper.track(reaper.Group(
+proc))``; :meth:`Group.end` ends the group at once (a time-out).
+
 ``install`` turns SIGTERM into ``SystemExit(143)`` on the main thread,
 so ``finally`` blocks and the exit hook run; a handler someone else
 installed is left alone. Stdlib only.
@@ -18,7 +22,10 @@ installed is left alone. Stdlib only.
 from __future__ import annotations
 
 import atexit
+import contextlib
+import os
 import signal
+import subprocess
 import threading
 import time
 from typing import Any, List
@@ -27,6 +34,43 @@ from typing import Any, List
 _procs: List[Any] = []
 _lock = threading.Lock()
 _installed = False
+
+
+class Group:
+    """The process group of a ``Popen`` started with
+    ``start_new_session=True``: ``terminate`` and ``kill`` signal every
+    process of the group (grandchildren included), ``poll`` and ``wait``
+    are the leader's."""
+
+    def __init__(self, proc: Any):
+        self.proc = proc
+
+    def poll(self):
+        return self.proc.poll()
+
+    def wait(self, timeout=None):
+        return self.proc.wait(timeout=timeout)
+
+    def _signal(self, sig) -> None:
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(self.proc.pid, sig)
+
+    def terminate(self) -> None:
+        self._signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        self._signal(signal.SIGKILL)
+
+    def end(self, grace_s: float = 5.0) -> None:
+        """SIGTERM the group while its leader runs, SIGKILL what is left
+        after ``grace_s`` (a member that outlived its leader too), then
+        wait on the leader."""
+        if self.proc.poll() is None:
+            self.terminate()
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                self.proc.wait(timeout=grace_s)
+        self.kill()
+        self.proc.wait()
 
 
 def track(proc: Any) -> Any:

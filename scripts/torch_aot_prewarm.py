@@ -167,7 +167,8 @@ def prewarm(cfg, serve: bool, degraded: int, degraded_only: bool,
             if key not in first_epoch:
                 first_epoch[key] = e
                 keys.append(key)
-        with numerics_policy(cfg.compute_dtype, deterministic=True):
+        with numerics_policy(cfg.compute_dtype, deterministic=True,
+                             options=cfg.xla_compiler_options_dict):
             for i, key in enumerate(keys):
                 epoch = first_epoch[key]
                 batch = _seeded_episode(cfg, cfg.padded_batch_size,

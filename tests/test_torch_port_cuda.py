@@ -796,3 +796,76 @@ def test_replica_child_on_the_card(cuda_device, tmp_path):
     assert art["zero_dropped"] and art["migration"]["second_tier"] == "l2"
     kernels = art["bn_act_launches"]["fleet"]
     assert kernels["ok"] and kernels["total"] > 0
+
+
+@pytest.mark.parametrize("options, want", [
+    ({}, (True, False)),
+    ({"cudnn_deterministic": "false"}, (False, False)),
+    ({"cudnn_benchmark": "true", "cudnn_deterministic": "false"},
+     (False, True))])
+def test_backend_options_reach_cudnn_and_are_restored(cuda_device, options,
+                                                      want):
+    """Inside ``numerics_policy`` the backend options set
+    ``torch.backends.cudnn``'s flags over the trainer's deterministic
+    policy (a convolution runs under them), TF32 stays off for f32, and
+    every flag comes back on exit; an unknown option raises before any
+    flag is set."""
+    import torch.nn.functional as F
+    from howtotrainyourmamlpytorch_tpu_torch.device import (
+        NO_SUCH_OPTION, numerics_policy)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    x = torch.randn(4, 16, 12, 12, device=cuda_device)
+    w = torch.randn(16, 16, 3, 3, device=cuda_device)
+    with numerics_policy("float32", deterministic=True, options=options):
+        assert (cudnn.deterministic, cudnn.benchmark) == want
+        assert cudnn.allow_tf32 is False
+        assert torch.isfinite(F.conv2d(x, w, padding=1)).all()
+    assert (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32) == saved
+    with pytest.raises(ValueError, match=NO_SUCH_OPTION):
+        with numerics_policy("float32", deterministic=True,
+                             options={"cudnn_fastest": "true"}):
+            pass
+    assert (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32) == saved
+
+
+def test_trial_leg_on_the_card(cuda_device, tmp_path):
+    """``tune/trial.py`` at a small size on the card: the artifact with a
+    rate, an MFU from the card's peak and BN-kernel launches, eagerly and
+    (``aot_store_dir`` on a fresh store: a miss, captured) through the
+    phase key's CUDA graph; without ``bn_backend='pallas'`` it refuses
+    to time anything else."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dict(
+        experiment_name="trial", dataset_name="synthetic", image_height=12,
+        image_width=12, image_channels=3, num_classes_per_set=3,
+        num_samples_per_class=2, num_target_samples=2, cnn_num_filters=8,
+        num_stages=2, number_of_training_steps_per_iter=2,
+        number_of_evaluation_steps_per_iter=2, batch_size=4,
+        task_microbatches=2, bn_backend="pallas", total_epochs=2,
+        first_order_to_second_order_epoch=0)
+    arts = []
+    for name, extra, rc in (
+            ("k", {}, 0), ("g", {"aot_store_dir": str(tmp_path / "aot")}, 0),
+            ("c", {"bn_backend": "composite"}, 1)):
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps({**cfg, **extra}))
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "howtotrainyourmamlpytorch_tpu_torch.tune.trial", "--config",
+             str(path), "--steps", "3"], cwd=repo, capture_output=True,
+            text=True, timeout=600)
+        assert proc.returncode == rc, (proc.stdout[-2000:],
+                                       proc.stderr[-2000:])
+        arts.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    ok, graph, refused = arts
+    for art in (ok, graph):
+        assert art["value"] > 0 and 0 < art["mfu"] < 1
+        assert art["bn_launches"] > 0
+        assert art["device_kind"] == torch.cuda.get_device_name(0)
+    assert ok["aot_hits"] is None and graph["aot_hits"] == 0
+    assert np.isfinite(graph["loss"]) and np.isfinite(ok["loss"])
+    assert "bn_backend='pallas'" in refused["error"]

@@ -462,6 +462,7 @@ def test_warm_start_knobs_on_the_cpu(knob, tmp_path):
             if r["event"] == "warm_start"]
     assert len(rows) == 1 and rows[0]["compiles_before_first_step"] == 0
     assert rows[0]["iter"] == 0 and "aot_hits" not in rows[0]
+    assert rows[0]["bitwise_resume"] is True
 
 
 @pytest.mark.parametrize("knob", [

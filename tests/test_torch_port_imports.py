@@ -39,7 +39,8 @@ PORT_FILES = sorted(
 ) + ["chip_smoke.py"] + sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
-PORT_SCRIPTS = ("torch_aot_prewarm", "torch_chaos_fleet", "torch_chaos_pod",
+PORT_SCRIPTS = ("torch_accuracy_gate", "torch_aot_prewarm",
+                "torch_autotune", "torch_chaos_fleet", "torch_chaos_pod",
                 "torch_chaos_run",
                 "torch_ckpt_admin", "torch_dataset_pack",
                 "torch_fleet_bench", "torch_generate_scripts",
@@ -47,7 +48,8 @@ PORT_SCRIPTS = ("torch_aot_prewarm", "torch_chaos_fleet", "torch_chaos_pod",
                 "torch_perf_window_probe",
                 "torch_serve_bench", "torch_serve_profile",
                 "torch_slo_report", "torch_telemetry_report",
-                "torch_trace_export", "torch_traffic_replay")
+                "torch_trace_export", "torch_traffic_replay",
+                "torch_tune_parity")
 # A dotted JAX-package module name (or the bare package name), and the
 # aliases of the JAX package's file-path loaders.
 JAX_MODULE_NAME = re.compile(
@@ -160,7 +162,29 @@ def test_every_port_module_imports_with_jax_blocked():
         "serve.fleet.replica", "serve.loadlab.trace",
         "serve.loadlab.workloads", "serve.loadlab.replay",
         "datastore", "datastore.format", "datastore.packed",
-        "telemetry.report")} <= mods
+        "telemetry.report", "tune", "tune.space", "tune.record",
+        "tune.harness", "tune.trial")} <= mods
+
+
+def test_autotune_driver_and_tune_modules_import_no_torch():
+    """The autotune driver runs where torch cannot be imported, as the
+    JAX package's runs without jax: it, ``tune/`` (but the trial leg)
+    and what they load are stdlib only."""
+    code = (
+        "import sys\n"
+        "for name in ('torch', 'jax', 'jaxlib', 'numpy',\n"
+        "             'howtotrainyourmamlpytorch_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib.util as u\n"
+        "spec = u.spec_from_file_location('d', 'scripts/torch_autotune.py')\n"
+        "spec.loader.exec_module(u.module_from_spec(spec))\n"
+        "import howtotrainyourmamlpytorch_tpu_torch.tune.harness\n"
+        "print(sorted(m for m in sys.modules if m.startswith("
+        "'howtotrainyourmamlpytorch_tpu_torch.tune')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "tune.trial" not in out.stdout and "tune.record" in out.stdout
 
 
 def test_port_scripts_are_all_checked():

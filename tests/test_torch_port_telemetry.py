@@ -562,3 +562,75 @@ def test_window_records_count_a_dropped_tail(tail_recorded):
     else:
         assert win.lost == 3
         assert names == ["mul_kernel"]
+
+
+def _bn_window(dropped, kernel_lost=False):
+    """A window of three BN-kernel launches. The tracer dropped the last
+    ``dropped`` of them with their launch records, which leaves no
+    launch without its record to count; with ``kernel_lost`` it also
+    kept one other launch whose kernel record it dropped."""
+    events = [
+        _Record(prof.WINDOW_MARKER, "cpu", 0, 100 * MS, 1, annotation=True),
+        _Record("task_adapt", "cpu", 1 * MS, 90 * MS, 2, annotation=True)]
+    for i in range(3):
+        t, corr, op = (10 + 20 * i) * MS, 40 + i, 10 + i
+        events.append(_Record("aten::bn_act", "cpu", t, t + MS, op))
+        if i < 3 - dropped:
+            events += [
+                _Record("cudaLaunchCooperativeKernel", "cpu", t + 5,
+                        t + MS, corr, op),
+                _Record("bn_act_persistent<float>", "cuda", t + 2 * MS,
+                        t + 3 * MS, corr, op)]
+    if kernel_lost:
+        events.append(_Record("cudaLaunchKernel", "cpu", 80 * MS,
+                              81 * MS, 60, 30))
+    return events
+
+
+@pytest.mark.parametrize("dropped, kernel_lost",
+                         [(0, False), (1, False), (2, False), (0, True),
+                          (2, True)])
+def test_window_records_count_a_bn_shortfall(dropped, kernel_lost):
+    """A window whose ``bn_act`` device records fall short of the BN
+    kernel's launches in it counts the shortfall as lost, though the
+    tracer dropped the launch records too; a window that also kept a
+    launch with no kernel record counts the larger of the two (that
+    launch may be one of the BN kernel's). Without the launch count (a
+    caller that does not know it) only the launches with no record are
+    counted, as before."""
+    events = _bn_window(dropped, kernel_lost)
+    win = prof.window_records(events, bn_launches=3)
+    assert win.lane == "cuda"
+    assert sum(r[0].startswith("bn_act") for r in win.records) == (
+        3 - dropped)
+    assert win.lost == max(dropped, int(kernel_lost))
+    assert prof.window_records(events).lost == int(kernel_lost)
+
+
+class _FakeProfile:
+    """A finished capture whose raw records are ``events``."""
+
+    def __init__(self, events):
+        kineto = type("K", (), {"events": lambda _self: events})()
+        self.profiler = type("P", (), {"kineto_results": kineto})()
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_end_window_publishes_the_bn_shortfall(monkeypatch, tmp_path):
+    """``PerfSampler.end_window`` counts the BN kernel's launches made
+    while its window was open and publishes a shortfall of their device
+    records as ``device_records_lost``: 3 launches, 2 records."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    rows = []
+    jsonl = type("J", (), {"log": lambda _s, event, **kw: rows.append(kw)})()
+    sampler = prof.PerfSampler(1, jsonl=jsonl)
+    monkeypatch.setattr(bn_act, "launches", 10)
+    sampler._bn_at_start = prof._bn_launches()
+    sampler._window = (_FakeProfile(_bn_window(1)), _FakeProfile([]), 0.0)
+    monkeypatch.setattr(bn_act, "launches", 13)
+    row = sampler.end_window(1, epoch=0)
+    assert row["device_lane"] == "cuda"
+    assert row["device_records_lost"] == 1 == rows[0]["device_records_lost"]
+    assert row["per_family_kernels"] == {"bn_act": 2}
