@@ -176,14 +176,21 @@ failure:
 
 12. The mesh (``mesh_path``), each leg in subprocesses with a time limit
    (a rank that fails, hangs or cannot join its group fails the phase;
-   (a)'s and (c)'s ranks run beside (b)'s witness ranks, for run time):
+   (a)'s and (c)'s ranks run beside (b)'s witness and CLI ranks, the
+   CLI's resumed half as soon as its paused half ends, for run time):
    (a) a one-rank NCCL group running a flagship second-order step
    (twice: the second timed warm) at full width through
    ``make_sharded_steps`` (12 one-task microbatches, f32, deterministic
    cuDNN) on phase 4's state and batch: its loss and
    meta-gradient (through the same fused all-reduce) bitwise phase 4's
    unsharded step, else held to ``F32_FLOORS``, its BN-kernel launches
-   the derived 336; (b) two gloo ranks sharing the card: first a witness
+   the derived 336; then the same rank through its graphs on a fresh
+   store (``_rank_graph_steps``: the accumulation and the update, the
+   NCCL all-reduce run eagerly between them): two steps eager and
+   replayed from phase 4's state bitwise (state, Adam moments, metrics,
+   counters), launches as derived, one miss, no demotion
+   (``aot/exec_fallbacks`` 0); (b) two gloo ranks sharing the card:
+   first a witness
    in f32, phase 4's batch split over the ranks, whose reduced
    meta-gradient must meet ``F32_FLOORS`` against phase 4's one-rank one
    and whose rank left unreduced (a planted fault) ``BF16_FLOORS`` must
@@ -200,8 +207,14 @@ failure:
    8 microbatches), one second-order MSL step per rank through the
    train step the builder's loop calls: losses equal across ranks and
    finite, launches as
-   derived, the cuts printed on one line; the pod JSON's own cluster
-   knobs (600 s budget) stay on, as in phase 6.
+   derived, the cuts printed on one line; then the same step from the
+   same state through each rank's graphs (the builder's plan, a fresh
+   store; the gloo all-reduce staged between them): bitwise per rank,
+   replayed losses equal across ranks, launches as derived, nothing
+   demoted; the graphs' pool memory printed beside the eager peak, and
+   one replay's wall and device ms under the profiler (nothing claimed
+   from them); the pod JSON's own cluster knobs (600 s budget) stay on,
+   as in phase 6.
 13. The pod fault domain (``pod_fault_domain``), through
    ``scripts/torch_chaos_pod.py`` (gloo ranks sharing the card, started
    by the harness, on the flagship JSON with phase 5's length cuts and
@@ -216,12 +229,22 @@ failure:
    pinned, both resume at its iteration and finish; then rank 1 reads
    the run through a ``MANIFEST.json`` one epoch stale: both log the
    consensus, resume from the older epoch and end on the same final
-   checkpoint bytes; (c) 3 ranks with ``elastic_mode 1``, ``kill_peer``
-   on host 0 (the writer and the store's host): hosts 1 and 2 agree on
+   checkpoint bytes; (c) 3 ranks with ``elastic_mode 1`` and a
+   warm-start store (``aot_store_dir``, filled for the 2-rank survivor
+   roster by ``scripts/torch_aot_prewarm.py --degraded 1
+   --degraded-only``, run on the leg's config as a phase child beside
+   phase 12 and handed to the leg, ``--elastic-prewarm``; run alone,
+   the leg runs it first), their steps as CUDA graphs around each rank's gloo
+   all-reduce, ``kill_peer`` on host 0 (the writer of the checkpoints and
+   of the store, and the process group's host): hosts 1 and 2 agree on
    generation 1, restart in place as ranks 0 and 1 of 2 and finish (exit
-   0, one reshard); a cold 2-rank run at the survivor geometry from a
-   snapshot of the committed state ends bitwise the survivors' final
-   checkpoint; every process's launches as derived for its generation;
+   0, one reshard), each reaching its first step with
+   ``compiles_before_first_step == 0``, no miss, no ``nvcc`` run and no
+   executable demoted; a cold 2-rank run (eager, no store) at the
+   survivor geometry from a snapshot of the committed state ends bitwise
+   the survivors' final checkpoint; every process's launches as derived
+   for its generation, the captures' warm-ups included; the reshard wall
+   printed beside PR 12's eager one;
    (d) phase 5's CLI run on one rank with the domain armed (``POD_ARMED``)
    ends bitwise phase 5's final state with the same launches, its lease
    and heartbeat lease ages written. Prints the trip latency, the reshard
@@ -266,8 +289,9 @@ launches must count the shortfall in ``device_records_lost``.
 
 Phases 6, 8, 14 and 15 need nothing of the others: each runs in a child
 process (``chip_smoke.py --phase-child <name> <out>``) beside others, for
-run time (``PHASE_SCHEDULE``: 6 and 15 beside 3-5 and 7; 8 beside 9, 10
-and 12; 14 beside 9 and 10); phases 2, 11 and 13 run beside nothing.
+run time (``PHASE_SCHEDULE``: 6 and 15 beside 3-5 and 7; 8 and 14
+beside 9, 10 and 12; 13 (c)'s survivor-roster prewarm beside 12);
+phases 2, 11 and 13 run beside nothing.
 
 Every child process starts in a session of its own through one helper
 (``_spawn``, ``_finish``, ``_child``), which ends the session (SIGTERM,
@@ -4252,6 +4276,114 @@ def _mesh_cli_rank(out: str, argv, info: dict) -> None:
                    f"{out}.leaves.pt")
 
 
+def _rank_graph_steps(cfg, plan, state, batches, epoch: int, key,
+                      store_dir: str, profile_card: str = "",
+                      eager=None) -> dict:
+    """A rank's steps of phase ``key`` from ``state`` over ``batches``,
+    eagerly and through the rank's graphs (``parallel/aot.py §
+    TrainGraph``: the accumulation and the update, the rank's all-reduce
+    run eagerly between them), captured through a fresh store at
+    ``store_dir`` (process 0 writes the record). Returns whether the two
+    chains are bitwise (state, Adam moments, metrics, counters), the BN
+    kernel's launches of the capture and the replays against the
+    derivation, the record's hit, the counters, the eager peak and the
+    graphs' pool memory, and step times; with ``profile_card``, each
+    replay runs under the profiler (its wall is the profiled one).
+    ``eager``: the caller's own eager chain from ``state`` over
+    ``batches`` (new state, each step's ``(loss, accuracy,
+    support_loss, learning_rate)``, step ms, peak GiB), not run again."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import aot
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry.registry import (
+        MetricsRegistry)
+    so, msl = key
+    # Own copies: the loader may reuse its device buffers.
+    batches = [type(b)(*(t.clone() for t in b)) for b in batches]
+    device = batches[0].support_x.device
+    per_step = (cfg.effective_task_microbatches() * _bn_per_forward(cfg)
+                * _forwards_per_chunk(cfg, so, msl))
+    reg = MetricsRegistry()
+    for name in aot.COUNTERS:
+        reg.counter(name)
+    store = aot.AOTStore.from_config(
+        cfg.replace(aot_store_dir=store_dir), device, registry=reg,
+        writer=plan.mesh.rank == 0)
+
+    def chain(fn):
+        st, metrics, ms = state, [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = fn(st, b, epoch, second_order=so, use_msl=msl)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append((m.loss, m.accuracy, m.support_loss,
+                            m.learning_rate))
+        return st, metrics, ms
+
+    if eager is None:
+        torch.cuda.reset_peak_memory_stats()
+        eager = (*chain(plan.train_step),
+                 torch.cuda.max_memory_allocated() / 2**30)
+    eager, m_e, eager_ms, eager_peak = eager
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    zero = aot.zero_episode(cfg, batches[0].support_x.shape[0], device)
+    before = bn_act.launches
+    fn, hit = aot.load_or_compile(
+        store, aot.train_exec_name(key),
+        lambda: aot.TrainGraph(cfg, plan.train_step, key, state, zero,
+                               epoch),
+        aot.signature_of(state, zero), registry=reg,
+        fallback=plan.train_step)
+    del zero
+    torch.cuda.empty_cache()
+    graph = getattr(fn, "compiled", None)
+    pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2**30
+    held_gib = (torch.cuda.memory_allocated() - alloc0) / 2**30
+    profiled = []
+    replay = fn
+    if profile_card:
+        def replay(*a, **k):   # each replay under the profiler
+            out = []
+            profiled.append(_profiled(
+                f"rank {plan.mesh.rank} replayed step",
+                lambda: out.append(fn(*a, **k)), profile_card))
+            return out[0]
+    got, m_g, graph_ms = chain(replay)
+    launches = bn_act.launches - before
+    diff = _trees_bitwise(eager, got)
+    m_diff = [i for i, (x, y) in enumerate(zip(m_e, m_g))
+              if _trees_bitwise(x[:3], y[:3]) or x[3] != y[3]]
+    counters = (eager.opt_state.count, eager.step, got.opt_state.count,
+                got.step)
+    out = {"bitwise": not diff and not m_diff
+           and counters[:2] == counters[2:],
+           "differing": diff + [f"metrics{i}" for i in m_diff],
+           "graphs": len(graph.exec.graphs) if graph else 0,
+           "stage_launches": graph.exec.stage_launches if graph else None,
+           "launches": launches,
+           "derived": per_step * (1 + len(batches)),
+           "per_step": per_step, "hit": hit,
+           "counters": {k: reg.counter(k).value for k in (
+               aot.HITS, aot.MISSES, aot.ERRORS, aot.EXEC_FALLBACKS)},
+           "losses": [float(x[0]).hex() for x in m_g],
+           "eager_ms": eager_ms, "graph_ms": graph_ms,
+           "eager_peak_gib": eager_peak, "pool_gib": pool_gib,
+           "held_gib": held_gib}
+    if profiled:
+        # A replay's wall is the profiled window's, not the trace's
+        # post-processing after it.
+        out["graph_ms"] = [p["wall_ms"] for p in profiled]
+        out["profiled"] = {k: profiled[-1][k] for k in ("wall_ms",
+                                                        "device_ms", "idle")}
+    del fn, graph, replay
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_step_rank(out: str, job: str, info: dict) -> None:
     """(a) The one rank of an NCCL group: one flagship second-order f32
     step through ``make_sharded_steps`` and the meta-gradient through
@@ -4291,6 +4423,11 @@ def _mesh_step_rank(out: str, job: str, info: dict) -> None:
         loss, _, _, _, grads = make_meta_gradients(
             cfg, apply, reduce_axes=mesh)(state, batch, 41,
                                           second_order=True, use_msl=False)
+        # The same rank through its graphs on a fresh store: two steps
+        # eager and replayed from phase 4's state.
+        info["graph"] = _rank_graph_steps(
+            cfg, plan, state, [batch, batch], 41, (True, False),
+            f"{out}.store")
     info.update(rank=mesh.rank, world=mesh.world,
                 backend=multihost.backend(), losses=[float(m.loss).hex()])
     torch.save({"loss": float(m.loss), "mg_loss": float(loss),
@@ -4383,20 +4520,31 @@ def _mesh_pod_rank(out: str, argv, info: dict) -> None:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, m = builder.train_step(builder.state, batch, 0,
-                                  second_order=True, use_msl=True)
+        new, m = builder.train_step(builder.state, batch, 0,
+                                    second_order=True, use_msl=True)
         loss = float(m.loss)
         torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launches = bn_act.launches
+        # The same step from the same state through the rank's graphs
+        # (the builder's plan, a fresh store), the replay profiled.
+        info["graph"] = _rank_graph_steps(
+            cfg, builder._plan, builder.state, [batch], 0, (True, True),
+            os.path.join(cfg.experiment_root, "aot_store"),
+            profile_card=_card_line(),
+            eager=(new, [(m.loss, m.accuracy, m.support_loss,
+                          m.learning_rate)], [step_ms], peak_gib))
+        del new
     info.update(
         rank=builder.mesh.rank, world=builder.mesh.world,
         losses=[loss.hex()], local_tasks=int(batch.support_x.shape[0]),
         micro=cfg.effective_task_microbatches(),
-        step_ms=[(time.perf_counter() - t0) * 1e3],
-        launches=bn_act.launches,
+        step_ms=[step_ms], launches=launches,
         want_launches=(cfg.effective_task_microbatches()
                        * _bn_per_forward(cfg)
                        * _forwards_per_chunk(cfg, True, True)),
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        peak_gib=peak_gib)
     torch.distributed.destroy_process_group()
 
 
@@ -4438,6 +4586,44 @@ def _rank_line(tag: str, ranks, card: str) -> None:
               f"{[round(v, 3) for v in ar]} (median after the first "
               f"{median(ar):.3f}), bn_act launches {r['launches']}, peak "
               f"memory {r['peak_gib']:.2f} GiB ({card})", flush=True)
+
+
+def _check_rank_graphs(tag: str, ranks, card: str) -> list:
+    """Print and check each rank's ``_rank_graph_steps`` result: two
+    graphs, the replays bitwise the eager steps, the BN kernel's
+    launches as derived, a fresh store's one miss, nothing demoted.
+    Returns the failures; adds nothing to the kernel's entry (the
+    caller adds the launches)."""
+    failures = []
+    for r in ranks:
+        g = r["graph"]
+        c = g["counters"]
+        prof = g.get("profiled")
+        print(f"{tag} rank {r['rank']}/{r['world']} graphs: "
+              f"{g['graphs']} graphs around the rank's collective, "
+              f"captured launches per graph {g['stage_launches']}; "
+              f"{len(g['graph_ms'])} step(s) eager and replayed from one "
+              f"state: bitwise {g['bitwise']} (differing "
+              f"{g['differing'][:6]}); step ms eager "
+              f"{[round(v, 1) for v in g['eager_ms']]}, replayed "
+              f"{[round(v, 1) for v in g['graph_ms']]}"
+              + (f" under the profiler: wall {prof['wall_ms']:.1f} ms, "
+                 f"device {prof['device_ms']:.1f} ms, idle "
+                 f"{prof['idle']:.3f}" if prof else "")
+              + f"; eager peak {g['eager_peak_gib']:.2f} GiB, graph pool "
+              f"{g['pool_gib']:.2f} GiB reserved ({g['held_gib']:.2f} GiB "
+              f"held in its buffers); bn_act launches {g['launches']} = "
+              f"derived {g['derived']} (the capture's warm-up and every "
+              f"replay, {g['per_step']} per step); store "
+              f"{json.dumps(c)} ({card})", flush=True)
+        if (not g["bitwise"] or g["graphs"] != 2
+                or g["launches"] != g["derived"]
+                or g["stage_launches"] != [g["per_step"], 0]
+                or c["aot/exec_fallbacks"] or c["aot/errors"]
+                or (c["aot/hits"], c["aot/misses"]) != (0, 1)):
+            failures.append(f"{tag} rank {r['rank']} graphs: "
+                            f"{json.dumps(g)[:1500]}")
+    return failures
 
 
 def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
@@ -4495,16 +4681,29 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
                                      pause_argv)
         step_proc = _start_ranks([sys.executable, os.path.abspath(__file__),
                                   MESH_CHILD_FLAG, "step", out, job], env)
+        shard_proc = _start_torchrun(os.path.join(tmp, "shard"), "shard",
+                                     [job])
+        started = [pod_proc, pause_proc, step_proc, shard_proc]
         try:
+            # The CLI's resumed half starts as soon as its paused half
+            # ends, beside the rest (for run time).
+            paused = _torchrun("mesh (b) pause", os.path.join(tmp, "pause"),
+                               "cli", pause_argv, MESH_TIMEOUT,
+                               proc=pause_proc)
+            resume_argv = base + ["--continue_from_epoch", "latest"]
+            started.append(_start_torchrun(os.path.join(tmp, "resume"),
+                                           "cli", resume_argv))
             shard = _torchrun("mesh (b) witness", os.path.join(tmp, "shard"),
-                              "shard", [job], MESH_TIMEOUT)
+                              "shard", [job], MESH_TIMEOUT, proc=shard_proc)
+            log = _run_ranks("mesh (a)", None, MESH_TIMEOUT, proc=step_proc)
+            pod = _torchrun("mesh (c)", os.path.join(tmp, "pod"), "pod",
+                            pod_argv, MESH_TIMEOUT, proc=pod_proc)
+            resumed = _torchrun("mesh (b) resume",
+                                os.path.join(tmp, "resume"), "cli",
+                                resume_argv, MESH_TIMEOUT, proc=started[-1])
         finally:
-            try:
-                log = _run_ranks("mesh (a)", None, MESH_TIMEOUT,
-                                 proc=step_proc)
-            finally:
-                pod = _torchrun("mesh (c)", os.path.join(tmp, "pod"), "pod",
-                                pod_argv, MESH_TIMEOUT, proc=pod_proc)
+            for proc in started:   # none is left running, whatever raised
+                _reap(proc)
         with open(f"{out}.rank0.json") as f:
             rank = json.load(f)
         got = torch.load(f"{out}.result.pt", weights_only=False)
@@ -4548,7 +4747,8 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
                     float(ref_m.loss)) > F32_FLOORS[0]:
             failures.append(f"mesh (a): step loss {got['loss']} vs "
                             f"{float(ref_m.loss)}")
-        entry["launches"] += rank["launches"]
+        entry["launches"] += rank["launches"] + rank["graph"]["launches"]
+        failures += _check_rank_graphs("mesh (a)", [rank], card)
         del ref_new, ref_g
 
         # (b) Two gloo ranks sharing the card. First a witness in f32,
@@ -4588,16 +4788,11 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
                             f"do not refuse a rank left unreduced")
         _rank_line("mesh (b) witness", shard, card)
         entry["launches"] += sum(r["launches"] for r in shard)
-        seconds["a, b witness, c"] = round(time.perf_counter() - t0, 1)
+        seconds["a, b, c"] = round(time.perf_counter() - t0, 1)
 
-        # The CLI under torchrun, paused after epoch 0 (started above)
-        # and resumed.
+        # The CLI under torchrun, paused after epoch 0 and resumed (run
+        # above, beside (a), the witness and (c)).
         t0 = time.perf_counter()
-        paused = _torchrun("mesh (b) pause", os.path.join(tmp, "pause"),
-                           "cli", pause_argv, MESH_TIMEOUT, proc=pause_proc)
-        resumed = _torchrun("mesh (b) resume", os.path.join(tmp, "resume"),
-                            "cli", base + ["--continue_from_epoch",
-                                           "latest"], MESH_TIMEOUT)
         cfg = MAMLConfig.from_json_file(os.path.join(paused[0]["base"],
                                                      "config.json"))
         iters = cfg.total_iter_per_epoch
@@ -4679,7 +4874,7 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
               f"{train['step_ms'][41]:.1f} ms per second-order step "
               f"({card})", flush=True)
         entry["launches"] += sum(r["launches"] for r in paused + resumed)
-        seconds["b"] = round(time.perf_counter() - t0, 1)
+        seconds["b checks"] = round(time.perf_counter() - t0, 1)
 
         # (c) The ResNet-12 pod JSON on (1, 2): one second-order MSL step
         # (run above, beside (a) and the witness).
@@ -4706,7 +4901,12 @@ def mesh_path(entry: dict, card: str, train: dict, cli: dict) -> None:
               f"{[r['launches'] for r in pod]} = "
               f"{[r['want_launches'] for r in pod]} ({card})", flush=True)
         _rank_line("mesh (c)", pod, card)
-        entry["launches"] += sum(r["launches"] for r in pod)
+        entry["launches"] += sum(r["launches"] + r["graph"]["launches"]
+                                 for r in pod)
+        failures += _check_rank_graphs("mesh (c)", pod, card)
+        if pod[0]["graph"]["losses"] != pod[1]["graph"]["losses"]:
+            failures.append(f"mesh (c): the ranks' replayed losses differ "
+                            f"{[r['graph']['losses'] for r in pod]}")
         print("phase 12 seconds per part: " + json.dumps(seconds),
               flush=True)
     finally:
@@ -4757,9 +4957,57 @@ def _pod_launches(cfg, world: int, steps: dict, val_sweeps: int,
                                 val_sweeps, test_models)
 
 
+def _pod_warmups(cfg, world: int, start_epoch: int, orig: int = 0) -> int:
+    """BN-kernel launches of a pod rank's captures under a warm-start
+    store (each graph's one eager warm-up): one train step per phase key
+    its run visits from ``start_epoch`` (all captured before the first
+    step under several processes) and one eval batch."""
+    c = _pod_rank_cfg(cfg, world, orig)
+    s = _bn_per_forward(c)
+    keys = {(c.use_second_order(e), c.use_msl(e))
+            for e in range(start_epoch, c.total_epochs)}
+    return (sum(c.effective_task_microbatches() * s
+                * _forwards_per_chunk(c, so, msl) for so, msl in keys)
+            + s * (c.number_of_evaluation_steps_per_iter + 1))
+
+
 def _median(values) -> float:
     v = list(values or [])[1:] or list(values or [])
     return round(statistics.median(v), 1) if v else float("nan")
+
+
+# Phase 13 (c)'s survivor-roster prewarm, run as a phase child beside
+# phase 12 for run time; phase 13 hands its artifact to the elastic leg.
+POD_PREWARM = os.path.join(REPO, ".smoke_runs", "pod_prewarm")
+POD_PREWARM_ARTIFACT = os.path.join(POD_PREWARM, "prewarm.json")
+
+
+def _pod_cfg():
+    """Phase 13's config: the flagship JSON with phase 5's length cuts."""
+    from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
+    return train_maml_system.get_args(
+        ["--name_of_args_json_file", FLAGSHIP] + CLI_ARGS)
+
+
+def pod_prewarm(entry: dict, card: str) -> None:
+    """``scripts/torch_aot_prewarm.py --degraded 1 --degraded-only`` on
+    the elastic leg's config (``torch_chaos_pod.py § elastic_cfg``), as
+    the leg itself would run it, into a store under ``POD_PREWARM``;
+    writes its artifact to ``POD_PREWARM_ARTIFACT``. Launches nothing in
+    this process."""
+    import shutil
+    harness = _load_script(POD_SCRIPT)
+    shutil.rmtree(POD_PREWARM, ignore_errors=True)
+    pod = harness.Pod(POD_PREWARM, _pod_cfg().to_dict(), "cuda",
+                      POD_BUDGET_S, POD_LEASE_S)
+    eout = os.path.join(POD_PREWARM, "elastic")
+    art = harness.run_prewarm(eout, harness.elastic_cfg(
+        pod, eout, os.path.join(POD_PREWARM, "aot_store")), POD_TIMEOUT)
+    with open(POD_PREWARM_ARTIFACT, "w") as f:
+        json.dump(art, f)
+    print(f"pod (c) prewarm beside phase 12: exit {art.get('exit_code')}, "
+          f"ok {art.get('ok')}, {art.get('seconds')} s ({card})",
+          flush=True)
 
 
 def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
@@ -4768,7 +5016,6 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
     import shutil
     import tempfile
     import torch
-    from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
     from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
     from howtotrainyourmamlpytorch_tpu_torch.resilience import cluster
     from howtotrainyourmamlpytorch_tpu_torch.utils.tracing import read_jsonl
@@ -4779,8 +5026,7 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
     seconds, failures, procs = {}, [], []
     try:
         t0 = time.perf_counter()
-        cfg = train_maml_system.get_args(
-            ["--name_of_args_json_file", FLAGSHIP] + CLI_ARGS)
+        cfg = _pod_cfg()
         config = os.path.join(tmp, "pod_config.json")
         with open(config, "w") as f:
             json.dump(cfg.to_dict(), f)
@@ -4793,6 +5039,9 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
               f"legs {' and '.join(POD_CHAINS)} in two harness processes "
               f"side by side, leg (d) beside them (for run time) ({card})",
               flush=True)
+        # The elastic leg takes the prewarm run beside phase 12, if any.
+        prewarmed = (["--elastic-prewarm", POD_PREWARM_ARTIFACT]
+                     if os.path.exists(POD_PREWARM_ARTIFACT) else [])
         for i, chain in enumerate(POD_CHAINS):
             with open(os.path.join(tmp, f"harness{i}.out"), "w") as log:
                 procs.append(_spawn(
@@ -4800,7 +5049,8 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
                     [sys.executable, POD_SCRIPT, "--device", "cuda",
                      "--config", config, "--out",
                      os.path.join(tmp, f"pod{i}"), "--phases", chain]
-                    + POD_ARGS, stdout=log, stderr=subprocess.STDOUT))
+                    + POD_ARGS + (prewarmed if "elastic" in chain else []),
+                    stdout=log, stderr=subprocess.STDOUT))
 
         # (d) armed, not tripped: one rank, bitwise phase 5's run; in this
         # process while the harness's ranks run.
@@ -4896,13 +5146,17 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
               flush=True)
 
         # (c) elastic: 3 ranks, host 0 killed, 2 survivors, a cold run.
-        want0 = _pod_launches(cfg, 3, killed, 1, 0)
+        # The survivors ran on the store the harness's prewarm filled:
+        # each rank's launches include its captures' warm-ups.
+        want0 = (_pod_launches(cfg, 3, killed, 1, 0)
+                 + _pod_warmups(cfg, 3, 0))
         want1 = _pod_launches(cfg, 2, rest, 1, models, orig=3)
+        warm1 = want1 + _pod_warmups(cfg, 2, 1, orig=3)
         gen0 = art.get("elastic_generation0_launches") or {}
         gen1 = art.get("elastic_generation1_launches") or {}
         cold = art.get("elastic_cold_launches") or {}
         for tag, got, w in (("generation 0", gen0, want0),
-                            ("generation 1", gen1, want1),
+                            ("generation 1", gen1, warm1),
                             ("cold", cold, want1)):
             if sorted(got.values()) != [w, w]:
                 failures.append(f"pod (c) {tag}: bn_act launches {got}, "
@@ -4925,11 +5179,42 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
               f"2-rank run exits {art.get('elastic_cold_exit_codes')}, final "
               f"checkpoint bitwise the survivors' "
               f"{art.get('elastic_bitwise_equal_cold')}; launches generation "
-              f"0 {gen0} = {want0}, generation 1 {gen1} = {want1}, cold "
+              f"0 {gen0} = {want0}, generation 1 {gen1} = {warm1}, cold "
               f"{cold} = {want1}; step ms median per rank generation 1 "
               f"{[_median(v) for v in art.get('elastic_generation1_step_ms') or []]}"
               f", cold {[_median(v) for v in art.get('elastic_cold_step_ms') or []]}"
               f" ({card})", flush=True)
+        pre = art.get("elastic_prewarm") or {}
+        rows = art.get("elastic_generation1_warm_start") or []
+        aots = art.get("elastic_generation1_aot") or []
+        execs = [(e.get("name"), e.get("disposition"), e.get("bitwise"))
+                 for e in pre.get("executables") or []]
+        warm = [[(r or {}).get(k) for k in (
+            "compiles_before_first_step", "aot_misses", "aot_hits",
+            "nvcc_runs_before_first_step", "time_to_first_step_seconds")]
+            for r in rows]
+        print(f"pod (c) warm start: the survivor roster prewarmed by "
+              f"scripts/torch_aot_prewarm.py --degraded 1 --degraded-only "
+              f"(exit {pre.get('exit_code')}, ok {pre.get('ok')}, "
+              f"{pre.get('hits')} hits, {pre.get('misses')} misses, "
+              f"{pre.get('failures')} failures, nvcc runs "
+              f"{pre.get('nvcc_runs')}, {pre.get('seconds')} s, "
+              f"executables {execs}); each survivor's warm_start "
+              f"(compiles before the first step, misses, hits, nvcc runs, "
+              f"time to first step s) {warm}, nvcc runs in all "
+              f"{art.get('elastic_generation1_nvcc_runs')}, exec fallbacks "
+              f"{[(a or {}).get('aot/exec_fallbacks') for a in aots]}; "
+              f"reshard wall {art.get('elastic_reshard_wall_s')} s beside "
+              f"PR 12's eager 7.95-9.43 s (no gate; ranks sharing the card "
+              f"beside the other chain) ({card})", flush=True)
+        if not (art.get("elastic_store") and art.get("elastic_warm_ok")
+                and pre.get("ok")):
+            failures.append(f"pod (c) warm start: store "
+                            f"{art.get('elastic_store')}, warm "
+                            f"{art.get('elastic_warm_ok')}, prewarm "
+                            f"{json.dumps(pre)[:1500]}, rows "
+                            f"{json.dumps(rows)[:1500]}, aot "
+                            f"{json.dumps(aots)[:800]}")
         print("pod harness seconds per phase: " + json.dumps(
             {k: art.get(f"{k}_seconds")
              for k in ("peer_kill", "restart", "elastic")}), flush=True)
@@ -4967,6 +5252,7 @@ def pod_fault_domain(entry: dict, card: str, cli: dict) -> None:
         for q in procs:  # none is left running, whatever raised
             _reap(q)
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(POD_PREWARM, ignore_errors=True)
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("phase 13: " + "; ".join(failures))
@@ -5476,14 +5762,16 @@ PHASE_SCHEDULE = (
     ("run", "train"), ("run", "cli"), ("run", "telemetry"),
     ("join", "backbones"), ("join", "tune"),
     ("start", "faults"), ("start", "warm"), ("run", "serving"),
-    ("run", "data"), ("join", "warm"), ("run", "mesh"), ("join", "faults"),
+    ("run", "data"), ("start", "pod_prewarm"), ("run", "mesh"),
+    ("join", "warm"), ("join", "pod_prewarm"), ("join", "faults"),
     ("run", "fleet"), ("run", "pod"))
 PHASE_CHILD_TIMEOUT = 900
 
 
 def _phase_children() -> dict:
     return {"backbones": other_backbones, "faults": fault_path,
-            "warm": warm_start, "tune": tune_sweep}
+            "warm": warm_start, "tune": tune_sweep,
+            "pod_prewarm": pod_prewarm}
 
 
 def _start_phase_child(name: str) -> dict:

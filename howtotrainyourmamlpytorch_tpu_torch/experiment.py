@@ -98,19 +98,27 @@ has asked to rejoin.
 Warm start (``parallel/aot.py``, the JAX package's ``_adopt_aot_plan``
 and ``warm_start`` row): ``compilation_cache_dir`` is the kernel build
 cache for the run (``ops/build.py § set_cache_dir``). With
-``aot_store_dir`` (one process on the card: a ``ValueError`` on the CPU
-or with several processes), the train step of each phase key of the
-remaining schedule and the eval step run as CUDA graphs: the first phase
-key's and the eval step's are captured before the first step (hits from
-the store's records, misses captured and recorded), a later key's at
-its phase boundary on the stepping thread, before its epoch's batches
-are asked for (the JAX trainer compiles those on a background thread).
-Steps with training health, and a phase's first step under the perf
-sampler (which counts its FLOPs), run eagerly. Each session logs one
-``warm_start`` row after its first train step (time to it, kernel builds
-and graph misses captured before it, hits, misses, and whether the
-config's backend options keep the bitwise resume contract) and sets the
-``warm_start/*`` gauges.
+``aot_store_dir`` (on the card: a ``ValueError`` on the CPU), the train
+step of each phase key of the remaining schedule and the eval step run
+as CUDA graphs: a rank's train step as two graphs, the rank-local
+accumulation and the update, around its one all-reduce, which runs
+eagerly between them; the eval step as one graph before its eager
+all-gather. One process captures its first phase key's and the eval
+step's before the first step (hits from the store's records, misses
+captured and recorded), a later key's at its phase boundary on the
+stepping thread, before its epoch's batches are asked for (the JAX
+trainer compiles those on a background thread). Under several processes
+every rank captures every key before the first step, none deferred;
+process 0 alone writes records, and the store's fingerprint holds the
+world size, so a survivor roster finds its own directory
+(``scripts/torch_aot_prewarm.py --degraded``). Steps with training
+health, and a phase's first step under the perf sampler (which counts
+its FLOPs), run eagerly. Each session logs one ``warm_start`` row after
+its first train step (time to it, kernel builds and graph misses
+captured before it, hits, misses, and whether the config's backend
+options keep the bitwise resume contract), every rank of several also
+into ``logs/warm_start_p<rank>.jsonl``, and sets the ``warm_start/*``
+gauges.
 """
 
 from __future__ import annotations
@@ -201,11 +209,6 @@ class ExperimentBuilder:
     def __init__(self, cfg: MAMLConfig, device: DeviceLike = None):
         self.device = multihost.rank_device(device)
         aot.require_card(cfg, self.device)
-        if aot.enabled(cfg) and multihost.process_count() > 1:
-            raise ValueError(
-                "aot_store_dir captures one process's step: a rank's step "
-                "holds its collective, which runs outside a CUDA graph "
-                "(unset aot_store_dir for a multi-process run)")
         # Every rank computes; process 0 alone writes the shared files.
         self.is_main_process = multihost.process_index() == 0
         self._multihost = multihost.process_count() > 1
@@ -252,8 +255,11 @@ class ExperimentBuilder:
         print(self.mesh.describe(self.device), flush=True)
         # Without a process group the mesh reduces nothing, and the
         # steps are the plain ones.
-        plan = make_sharded_steps(cfg, self.model_apply, self.mesh)
-        self.train_step, self.eval_step = plan.train_step, plan.eval_step
+        self._plan = make_sharded_steps(cfg, self.model_apply, self.mesh)
+        # The loop calls train_step: the phase key's executable once the
+        # warm start adopted one (_dispatch_step), else the plan's step.
+        self.train_step = self._dispatch_step
+        self.eval_step = self._plan.eval_step
         self.data = MetaLearningDataLoader(cfg, device=self.device,
                                            registry=self.registry,
                                            mesh=self.mesh)
@@ -319,6 +325,8 @@ class ExperimentBuilder:
         self._nvcc_at_start = 0
         self._captures_before_first_step: Optional[int] = None
         self._first_dispatch_noted = False
+        # This session's warm_start row, once its first step returned.
+        self.warm_start_row: Optional[Dict[str, Any]] = None
         # Pod fault domain and elastic policy: installed for
         # run_experiment only, iff cluster_collective_timeout_s > 0 (and
         # elastic_mode=1 for the policy).
@@ -520,13 +528,7 @@ class ExperimentBuilder:
                             and prof is None
                             and self._perf.due(self.current_iter)
                             and self._perf.start_window(self.current_iter))
-                # The phase's executable (parallel/aot.py), except for a
-                # first step that counts the phase's FLOPs.
-                train_fn = (self.train_step
-                            if first_call and self._perf is not None
-                            else self._phase_fns.get(phase_key,
-                                                     self.train_step))
-                step = lambda: train_fn(
+                step = lambda: self.train_step(
                     self.state, batch, epoch, second_order=second_order,
                     use_msl=use_msl, health=want_health)
                 try:
@@ -665,6 +667,21 @@ class ExperimentBuilder:
                        **{f"dispatch_{k}": v for k, v in tsum.items()})
         self._emit_epoch_telemetry(epoch, timer, tsum, stats)
         return stats
+
+    def _dispatch_step(self, state, batch, epoch, *, second_order: bool,
+                       use_msl: bool, plain: bool = False,
+                       health: bool = False):
+        """The train step the loop calls: the phase key's executable
+        (parallel/aot.py) when the warm start adopted one, except for a
+        phase's first step under the perf sampler (it counts the phase's
+        FLOPs); otherwise the plan's eager step."""
+        key = (second_order, use_msl)
+        fn = self._phase_fns.get(key)
+        if fn is None or (self._perf is not None
+                          and key not in self._phases_run):
+            fn = self._plan.train_step
+        return fn(state, batch, epoch, second_order=second_order,
+                  use_msl=use_msl, plain=plain, health=health)
 
     def _first_step(self, step, card_name: str):
         """A step variant's first call; with the perf sampler on it counts
@@ -954,11 +971,13 @@ class ExperimentBuilder:
 
     def _train_capture(self, key, epoch: int):
         """A capture function of phase ``key``'s train step, on the
-        current state and a zero batch (what a replay reads is the
-        caller's), and the signature it is recorded under."""
-        batch = aot.zero_episode(self.cfg, self.cfg.padded_batch_size,
-                                 self.device)
-        return (lambda: aot.TrainGraph(self.cfg, self.train_step, key,
+        current state and a zero batch of this rank's shard (what a
+        replay reads is the caller's), and the signature it is recorded
+        under."""
+        batch = aot.zero_episode(
+            self.cfg, self.cfg.padded_batch_size // self.mesh.world,
+            self.device)
+        return (lambda: aot.TrainGraph(self.cfg, self._plan.train_step, key,
                                        self.state, batch, epoch),
                 aot.signature_of(self.state, batch))
 
@@ -968,8 +987,12 @@ class ExperimentBuilder:
         (hits and misses counted); the first key's train step and the
         eval step are captured now, under the compile deadline (a miss
         is recorded for the next process), the later keys at their
-        phase boundary (:meth:`_adopt_deferred`). Fail-soft: a failed
-        capture leaves the eager step, counted."""
+        phase boundary (:meth:`_adopt_deferred`). Under several
+        processes every key is captured now, none deferred (the JAX
+        trainer's uniform dispatch across processes): each rank captures
+        its own graphs before the ranks' first collective, and process 0
+        alone writes records. Fail-soft: a failed capture leaves the
+        eager step, counted."""
         cfg = self.cfg
         if not aot.enabled(cfg) or self._aot_store is not None:
             return
@@ -986,22 +1009,24 @@ class ExperimentBuilder:
             for i, key in enumerate(keys):
                 capture, sig = self._train_capture(key, self.epoch)
                 name = aot.train_exec_name(key)
-                if i == 0:
+                if i == 0 or self._multihost:
                     fn, hit = aot.load_or_compile(
                         store, name, capture, sig, registry=self.registry,
-                        fallback=self.train_step)
+                        fallback=self._plan.train_step)
                     self._phase_fns[key] = fn
+                    captures += int(not hit)
                 else:
                     hit = aot.probe(store, name, sig)
                     self._deferred.add(key)
                 stats["hits" if hit else "misses"] += 1
-                captures += int(i == 0 and not hit)
-            batch = aot.zero_episode(cfg, cfg.effective_eval_batch_size,
-                                     self.device)
+            batch = aot.zero_episode(
+                cfg, cfg.effective_eval_batch_size // self.mesh.world,
+                self.device)
             eager_eval = self.eval_step
             self.eval_step, hit = aot.load_or_compile(
                 store, "eval",
-                lambda: aot.EvalGraph(eager_eval, self.state, batch),
+                lambda: aot.EvalGraph(self._plan.eval_step, self.state,
+                                      batch),
                 aot.EvalGraph.signature(self.state, batch),
                 registry=self.registry, fallback=eager_eval)
             stats["hits" if hit else "misses"] += 1
@@ -1026,7 +1051,7 @@ class ExperimentBuilder:
         with watchdog.phase("compile", detail=f"aot_phase{key}"):
             self._phase_fns[key], _ = aot.load_or_compile(
                 self._aot_store, aot.train_exec_name(key), capture, sig,
-                registry=self.registry, fallback=self.train_step,
+                registry=self.registry, fallback=self._plan.train_step,
                 count_load=False)
 
     def _note_first_dispatch(self) -> None:
@@ -1059,7 +1084,15 @@ class ExperimentBuilder:
             row.update(aot_hits=self._aot_stats["hits"],
                        aot_misses=self._aot_stats["misses"],
                        aot_fingerprint=self._aot_stats["fingerprint"][:16])
+        self.warm_start_row = row
         self.jsonl.log("warm_start", **row)
+        if self._multihost:
+            # Every rank's own row (events.jsonl is process 0's): each
+            # rank captures its own graphs and pays its own first step.
+            JsonlLogger(os.path.join(
+                self.paths["logs"],
+                f"warm_start_p{self.mesh.rank}.jsonl")).log(
+                "warm_start", rank=self.mesh.rank, **row)
 
     def _install_cluster(self) -> Optional[cluster.ClusterFaultDomain]:
         """Install the pod fault domain (and, with ``elastic_mode=1``,

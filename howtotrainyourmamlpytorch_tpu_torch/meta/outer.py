@@ -50,6 +50,7 @@ from howtotrainyourmamlpytorch_tpu_torch.device import (DeviceLike,
 from howtotrainyourmamlpytorch_tpu_torch.meta.inner import (
     Episode, lslr_init, per_step_loss_importance, reptile_task_forward,
     split_fast_slow, task_forward)
+from howtotrainyourmamlpytorch_tpu_torch.models.layers import per_task_convs
 from howtotrainyourmamlpytorch_tpu_torch.ops.episode import normalize_episode
 from howtotrainyourmamlpytorch_tpu_torch.telemetry import health as health_mod
 from howtotrainyourmamlpytorch_tpu_torch.telemetry.profiler import region
@@ -361,6 +362,9 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn,
     this rank's position on the mesh, which places its shard's pads."""
     num_steps = cfg.number_of_training_steps_per_iter
     interpolate = cfg.algo.outer == "interpolate"
+    # The pad scale per (shard rows, device), made once: a step captured
+    # into a CUDA graph makes no host-to-device copy.
+    scales: Dict[Tuple[int, torch.device], Optional[torch.Tensor]] = {}
 
     def accumulate(state: MetaTrainState, batch: Episode, epoch, *,
                    second_order: bool, use_msl: bool, plain: bool = False,
@@ -370,8 +374,11 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn,
         msl_w = (per_step_loss_importance(cfg, epoch, device=device)
                  if use_msl else None)
         num_micro = cfg.effective_task_microbatches()
-        scale = _pad_scale(cfg, rank, batch.support_x.shape[0], device)
-        size = batch.support_x.shape[0] // num_micro
+        rows = batch.support_x.shape[0]
+        if (rows, device) not in scales:
+            scales[(rows, device)] = _pad_scale(cfg, rank, rows, device)
+        scale = scales[(rows, device)]
+        size = rows // num_micro
         if interpolate:
             trainable = {"params": state.params, "lslr": state.lslr}
         else:
@@ -379,8 +386,8 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn,
                 lambda t: t.detach().requires_grad_(True),
                 {"params": state.params, "lslr": state.lslr})
         leaves = tree_leaves(trainable)
-        totals = None
-        for c, chunk in enumerate(_chunks(batch, num_micro)):
+
+        def chunk_sums(c, chunk):
             s_c = None if scale is None else scale[c * size:(c + 1) * size]
             if interpolate:
                 with region("task_adapt"):
@@ -416,7 +423,12 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn,
             if per_step:
                 sums["ps_s"] = res.per_step_support_losses.mean(0)
                 sums["ps_t"] = res.per_step_target_losses.mean(0)
-            totals = _add(totals, sums)
+            return sums
+
+        totals = None
+        with per_task_convs(device):
+            for c, chunk in enumerate(_chunks(batch, num_micro)):
+                totals = _add(totals, chunk_sums(c, chunk))
         out = tree_map(lambda a: a / num_micro, totals)
         out["msl_w"] = msl_w
         return out
@@ -424,95 +436,93 @@ def _make_accumulation(cfg: MAMLConfig, apply_fn,
     return accumulate
 
 
-def _mesh_mean(out: Dict[str, Any], mesh) -> Dict[str, Any]:
-    """Local means -> global means: ONE fused all-reduce of the
-    meta-gradient, loss and aux (``mesh.all_reduce_mean``), where the JAX
-    package's ``pmean`` sits: after the microbatch accumulation, before
-    health, zeroing, clamp and Adam. Every rank then makes a bitwise
-    identical update, so the state stays replicated."""
-    keys = [k for k in ("loss", "acc", "s_loss", "bn", "grads", "ps_s",
-                        "ps_t") if k in out]
-    reduced = {k: out[k] for k in keys}
-    leaves = tree_leaves(reduced)
-    it = iter(mesh.all_reduce_mean(leaves))
-    return {**out, **tree_map(lambda _: next(it), reduced)}
+# The accumulation's outputs that the train step's one all-reduce carries,
+# in the order of its flat buffer.
+_REDUCED = ("loss", "acc", "s_loss", "bn", "grads", "ps_s", "ps_t")
 
 
-def make_meta_gradients(cfg: MAMLConfig, apply_fn, *,
-                        reduce_axes=None) -> Callable[..., Any]:
-    """Build ``meta_gradients(state, batch, epoch, *, second_order,
-    use_msl, plain=False) -> (loss, accuracy, support_loss, bn_state,
-    grads)``: the batch's meta-loss and its gradient with respect to
-    ``{"params", "lslr"}``, before any zeroing, clamp or update.
-
-    The batch (leading task axis, uint8 or f32 images) runs in
-    ``cfg.effective_task_microbatches()`` equal chunks, one task-batched
-    forward and one backward each; every output is the sum of the chunk
-    means divided by the chunk count, the JAX package's accumulation.
-    ``bn_state`` is the task mean of the post-task norm states. Under
-    ``meta_algorithm='reptile'`` (outer ``'interpolate'``) the gradient
-    of each fast leaf is the task mean of ``θ − φ`` and every other leaf
-    gets zeros. ``reduce_axes`` (a ``parallel.mesh.Mesh``): the rank's
-    local batch, all-reduced to the global mean as the train step does."""
-    accumulate = _make_accumulation(
-        cfg, apply_fn, rank=reduce_axes.rank if reduce_axes else 0)
-
-    def meta_gradients(state: MetaTrainState, batch: Episode, epoch, *,
-                       second_order: bool, use_msl: bool,
-                       plain: bool = False):
-        out = accumulate(state, batch, epoch, second_order=second_order,
-                         use_msl=use_msl, plain=plain)
-        if reduce_axes is not None:
-            out = _mesh_mean(out, reduce_axes)
-        return out["loss"], out["acc"], out["s_loss"], out["bn"], out["grads"]
-
-    return meta_gradients
+def pack_f32(tensors) -> torch.Tensor:
+    """The tensors flattened, in order, into ONE f32 buffer (every leaf
+    here is f32; a bf16 leaf widens exactly): what the train step's one
+    all-reduce carries (``parallel/mesh.py § Mesh.reduce_mean_``)."""
+    return torch.cat([t.detach().reshape(-1).to(torch.float32)
+                      for t in tensors])
 
 
-def make_train_step(cfg: MAMLConfig, apply_fn, *,
-                    reduce_axes=None) -> Callable[..., Any]:
-    """Build ``train_step(state, batch, epoch, *, second_order, use_msl,
-    plain=False, health=False, scalars=None) -> (new_state,
-    StepMetrics)``: the
-    meta-gradients (:func:`make_meta_gradients`), LSLR gradients zeroed
-    when they are not learnable, γ/β gradients zeroed when BNWB is off,
-    the ±clamp on the network's gradients only, then Adam. ``health``
-    adds the training-health diagnostics: gradient norms of the
-    meta-gradient before zeroing and clamp, update ratios and LSLR
-    statistics of the updated state, per-step losses and the MSL
-    weights.
+def unpack_f32(flat: torch.Tensor, like) -> list:
+    """:func:`pack_f32` undone: views of ``flat`` in the ``(shape,
+    dtype)`` of each entry of ``like``, in order."""
+    out, i = [], 0
+    for shape, dtype in like:
+        n = int(np.prod(shape, dtype=np.int64))
+        out.append(flat[i:i + n].view(shape).to(dtype))
+        i += n
+    return out
 
-    ``scalars``: a :class:`StepScalars` the caller filled for this step
-    (a CUDA graph's); by default the step fills its own from
-    ``state.opt_state.count`` and ``epoch``.
 
-    ``reduce_axes`` (a ``parallel.mesh.Mesh``): the batch is this rank's
-    shard of the global batch; after the microbatch accumulation ONE
-    fused all-reduce makes the meta-gradient, loss and aux global means
-    (:func:`_mesh_mean`), and with ``elastic_pad_tasks`` the rank's
-    position places its pads (:func:`_pad_scale`)."""
+class SumsLayout(NamedTuple):
+    """What the update needs to read the flat buffer back: the tree of
+    the accumulated means with each leaf's ``(shape, dtype)``, and the
+    MSL weights (read by health only, never reduced)."""
+    template: Dict[str, Any]
+    msl_w: Optional[torch.Tensor]
+
+
+class TrainPieces(NamedTuple):
+    """The train step as its three pieces (:func:`make_train_pieces`);
+    the step (:func:`make_train_step`) is exactly their composition.
+
+    * ``local(state, batch, epoch, *, second_order, use_msl, plain=False,
+      health=False) -> (flat, layout)``: this rank's chunked
+      forward/backward; ``flat`` is the one f32 buffer of its means
+      (:func:`pack_f32`), ``epoch`` the MSL epoch (a number or
+      ``StepScalars.epoch``);
+    * ``reduce(flat) -> flat``: the one fused all-reduce, the mean over
+      the ranks in place (nothing without a process group);
+    * ``update(state, flat, layout, *, health=False, scalars) ->
+      (new_state, StepMetrics)``: the zeroing, clamp and Adam on the
+      reduced buffer (with ``health``, the diagnostics too).
+
+    A CUDA graph captures ``local`` and ``update``; ``reduce`` runs
+    eagerly between them (``parallel/aot.py § TrainGraph``)."""
+    local: Callable[..., Tuple[torch.Tensor, SumsLayout]]
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+    update: Callable[..., Tuple["MetaTrainState", "StepMetrics"]]
+
+
+def _reduced(layout: SumsLayout, flat: torch.Tensor) -> Dict[str, Any]:
+    it = iter(unpack_f32(flat, tree_leaves(layout.template)))
+    return tree_map(lambda _: next(it), layout.template)
+
+
+def make_train_pieces(cfg: MAMLConfig, apply_fn, *,
+                      reduce_axes=None) -> TrainPieces:
+    """The pieces of :func:`make_train_step` (same arguments)."""
     accumulate = _make_accumulation(
         cfg, apply_fn, rank=reduce_axes.rank if reduce_axes else 0)
     schedule = meta_lr_schedule(cfg)
     learnable_lslr = cfg.effective_learnable_lslr
 
-    own: Dict[torch.device, StepScalars] = {}
+    def local(state: MetaTrainState, batch: Episode, epoch, *,
+              second_order: bool, use_msl: bool, plain: bool = False,
+              health: bool = False) -> Tuple[torch.Tensor, SumsLayout]:
+        out = accumulate(state, batch, epoch, second_order=second_order,
+                         use_msl=use_msl, plain=plain, per_step=health)
+        sums = {k: out[k] for k in _REDUCED if k in out}
+        template = tree_map(lambda t: (tuple(t.shape), t.dtype), sums)
+        return pack_f32(tree_leaves(sums)), SumsLayout(template,
+                                                       out["msl_w"])
 
-    def train_step(state: MetaTrainState, batch: Episode, epoch, *,
-                   second_order: bool, use_msl: bool, plain: bool = False,
-                   health: bool = False,
-                   scalars: Optional[StepScalars] = None
-                   ) -> Tuple[MetaTrainState, StepMetrics]:
-        if scalars is None:
-            device = batch.support_x.device
-            if device not in own:
-                own[device] = StepScalars(device)
-            scalars = own[device].fill(cfg, state.opt_state.count, epoch)
-        out = accumulate(state, batch, scalars.epoch,
-                         second_order=second_order, use_msl=use_msl,
-                         plain=plain, per_step=health)
+    def reduce(flat: torch.Tensor) -> torch.Tensor:
         if reduce_axes is not None:
-            out = _mesh_mean(out, reduce_axes)
+            reduce_axes.reduce_mean_(flat)
+        return flat
+
+    def update(state: MetaTrainState, flat: torch.Tensor,
+               layout: SumsLayout, *, health: bool = False,
+               scalars: StepScalars
+               ) -> Tuple[MetaTrainState, StepMetrics]:
+        out = _reduced(layout, flat)
         loss, acc, s_loss = out["loss"], out["acc"], out["s_loss"]
         new_bn, grads = out["bn"], out["grads"]
         diag = None
@@ -539,7 +549,7 @@ def make_train_step(cfg: MAMLConfig, apply_fn, *,
             if health:
                 diag.update(health_mod.update_health(
                     cfg, new, opt, lr, out["ps_s"], out["ps_t"],
-                    out["msl_w"]))
+                    layout.msl_w))
         new_state = MetaTrainState(params=new["params"], lslr=new["lslr"],
                                    bn_state=new_bn, opt_state=opt,
                                    step=state.step + 1)
@@ -547,6 +557,87 @@ def make_train_step(cfg: MAMLConfig, apply_fn, *,
                                       support_loss=s_loss,
                                       learning_rate=lr, health=diag)
 
+    return TrainPieces(local=local, reduce=reduce, update=update)
+
+
+def make_meta_gradients(cfg: MAMLConfig, apply_fn, *,
+                        reduce_axes=None) -> Callable[..., Any]:
+    """Build ``meta_gradients(state, batch, epoch, *, second_order,
+    use_msl, plain=False) -> (loss, accuracy, support_loss, bn_state,
+    grads)``: the batch's meta-loss and its gradient with respect to
+    ``{"params", "lslr"}``, before any zeroing, clamp or update.
+
+    The batch (leading task axis, uint8 or f32 images) runs in
+    ``cfg.effective_task_microbatches()`` equal chunks, one task-batched
+    forward and one backward each; every output is the sum of the chunk
+    means divided by the chunk count, the JAX package's accumulation.
+    ``bn_state`` is the task mean of the post-task norm states. Under
+    ``meta_algorithm='reptile'`` (outer ``'interpolate'``) the gradient
+    of each fast leaf is the task mean of ``θ − φ`` and every other leaf
+    gets zeros. ``reduce_axes`` (a ``parallel.mesh.Mesh``): the rank's
+    local batch, all-reduced to the global mean as the train step does
+    (the train step's ``local`` and ``reduce`` pieces)."""
+    pieces = make_train_pieces(cfg, apply_fn, reduce_axes=reduce_axes)
+
+    def meta_gradients(state: MetaTrainState, batch: Episode, epoch, *,
+                       second_order: bool, use_msl: bool,
+                       plain: bool = False):
+        flat, layout = pieces.local(state, batch, epoch,
+                                    second_order=second_order,
+                                    use_msl=use_msl, plain=plain)
+        out = _reduced(layout, pieces.reduce(flat))
+        return out["loss"], out["acc"], out["s_loss"], out["bn"], out["grads"]
+
+    return meta_gradients
+
+
+def make_train_step(cfg: MAMLConfig, apply_fn, *,
+                    reduce_axes=None) -> Callable[..., Any]:
+    """Build ``train_step(state, batch, epoch, *, second_order, use_msl,
+    plain=False, health=False, scalars=None) -> (new_state,
+    StepMetrics)``: the
+    meta-gradients (:func:`make_meta_gradients`), LSLR gradients zeroed
+    when they are not learnable, γ/β gradients zeroed when BNWB is off,
+    the ±clamp on the network's gradients only, then Adam. ``health``
+    adds the training-health diagnostics: gradient norms of the
+    meta-gradient before zeroing and clamp, update ratios and LSLR
+    statistics of the updated state, per-step losses and the MSL
+    weights.
+
+    ``scalars``: a :class:`StepScalars` the caller filled for this step
+    (a CUDA graph's); by default the step fills its own from
+    ``state.opt_state.count`` and ``epoch``.
+
+    ``reduce_axes`` (a ``parallel.mesh.Mesh``): the batch is this rank's
+    shard of the global batch; after the microbatch accumulation ONE
+    fused all-reduce makes the meta-gradient, loss and aux global means,
+    and with ``elastic_pad_tasks`` the rank's position places its pads
+    (:func:`_pad_scale`).
+
+    The step is the composition of its :class:`TrainPieces` (its
+    ``pieces`` attribute): ``local``, ``reduce``, then ``update``."""
+    pieces = make_train_pieces(cfg, apply_fn, reduce_axes=reduce_axes)
+    own: Dict[torch.device, StepScalars] = {}
+
+    def train_step(state: MetaTrainState, batch: Episode, epoch, *,
+                   second_order: bool, use_msl: bool, plain: bool = False,
+                   health: bool = False,
+                   scalars: Optional[StepScalars] = None
+                   ) -> Tuple[MetaTrainState, StepMetrics]:
+        if scalars is None:
+            device = batch.support_x.device
+            if device not in own:
+                own[device] = StepScalars(device)
+            scalars = own[device].fill(cfg, state.opt_state.count, epoch)
+        flat, layout = pieces.local(state, batch, scalars.epoch,
+                                    second_order=second_order,
+                                    use_msl=use_msl, plain=plain,
+                                    health=health)
+        pieces.reduce(flat)
+        return pieces.update(state, flat, layout, health=health,
+                             scalars=scalars)
+
+    train_step.pieces = pieces
     return train_step
 
 
@@ -554,6 +645,40 @@ class EvalResult(NamedTuple):
     loss: torch.Tensor           # (B,) per-task target loss
     accuracy: torch.Tensor       # (B,) per-task target accuracy
     target_logits: torch.Tensor  # (B, N*Q, N)
+
+
+class EvalPieces(NamedTuple):
+    """The eval step as its two pieces (:func:`make_eval_pieces`); the
+    step is exactly their composition. ``local(state, batch, *,
+    plain=False) -> (loss, accuracy, target_logits)`` of this rank's
+    tasks; ``gather(out) -> out`` of the whole batch on every rank, ONE
+    all-gather (nothing without a process group). A CUDA graph captures
+    ``local``; ``gather`` runs eagerly after it."""
+    local: Callable[..., Tuple[torch.Tensor, ...]]
+    gather: Callable[[Tuple[torch.Tensor, ...]], Tuple[torch.Tensor, ...]]
+
+
+def make_eval_pieces(cfg: MAMLConfig, apply_fn, *,
+                     gather_axes=None) -> EvalPieces:
+    """The pieces of :func:`make_eval_step` (same arguments)."""
+    num_steps = cfg.number_of_evaluation_steps_per_iter
+
+    def local(state: MetaTrainState, batch: Episode, *,
+              plain: bool = False) -> Tuple[torch.Tensor, ...]:
+        batch = normalize_episode(cfg, batch)
+        with torch.no_grad():
+            res = task_forward(cfg, apply_fn, state.params, state.lslr,
+                               state.bn_state, batch, num_steps=num_steps,
+                               second_order=False, use_msl=False,
+                               msl_weights=None, plain=plain)
+        return res.loss, res.target_accuracy, res.target_logits
+
+    def gather(out: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+        if gather_axes is None:
+            return out
+        return tuple(gather_axes.all_gather(out))
+
+    return EvalPieces(local=local, gather=gather)
 
 
 def make_eval_step(cfg: MAMLConfig, apply_fn, *,
@@ -564,20 +689,14 @@ def make_eval_step(cfg: MAMLConfig, apply_fn, *,
 
     ``gather_axes`` (a ``parallel.mesh.Mesh``): the batch is this rank's
     shard; ONE all-gather of the per-task results gives every rank the
-    whole eval batch's result."""
-    num_steps = cfg.number_of_evaluation_steps_per_iter
+    whole eval batch's result. The step is the composition of its
+    :class:`EvalPieces` (its ``pieces`` attribute)."""
+    pieces = make_eval_pieces(cfg, apply_fn, gather_axes=gather_axes)
 
     def eval_step(state: MetaTrainState, batch: Episode, *,
                   plain: bool = False) -> EvalResult:
-        batch = normalize_episode(cfg, batch)
-        with torch.no_grad():
-            res = task_forward(cfg, apply_fn, state.params, state.lslr,
-                               state.bn_state, batch, num_steps=num_steps,
-                               second_order=False, use_msl=False,
-                               msl_weights=None, plain=plain)
-        out = (res.loss, res.target_accuracy, res.target_logits)
-        if gather_axes is not None:
-            out = gather_axes.all_gather(out)
-        return EvalResult(*out)
+        return EvalResult(*pieces.gather(pieces.local(state, batch,
+                                                      plain=plain)))
 
+    eval_step.pieces = pieces
     return eval_step

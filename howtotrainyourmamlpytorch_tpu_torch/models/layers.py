@@ -146,6 +146,26 @@ def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+@contextlib.contextmanager
+def per_task_convs(device):
+    """On the CPU, convolutions through torch's own kernels rather than
+    oneDNN's while the block runs, forward and backward: torch then runs
+    a grouped conv group by group through one task's code, so a task's
+    conv, and its gradients, do not depend on how many tasks share the
+    call (oneDNN picks its grouped algorithm by the group count, and its
+    backward rounds differently at one group and at two). The flag is
+    torch's process-wide one, restored on exit; the card is untouched."""
+    if torch.device(device).type != "cpu":
+        yield
+        return
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = prev
+
+
 # ---------------------------------------------------------------------------
 # conv / linear
 # ---------------------------------------------------------------------------
@@ -244,6 +264,39 @@ def _as_matrix(x: torch.Tensor) -> torch.Tensor:
     return _channels_last(x).permute(0, 2, 3, 1).reshape(n * h * w, p)
 
 
+class _TasksFirst(torch.autograd.Function):
+    """The packed ``(R, T·C)`` matrix as a contiguous ``(T, R, C)``, and
+    back (:class:`_TasksPacked`): each task's reductions, the forward's
+    and autograd's, then run over its own contiguous block, so a task's
+    result does not depend on how many tasks share the matrix (a column
+    sum of the packed matrix rounds with the row width ``T·C``). Each is
+    the other's backward, so every derivative order keeps the layout."""
+
+    @staticmethod
+    def forward(ctx, x2, num_tasks: int):
+        r, p = x2.shape
+        return (x2.reshape(r, num_tasks, p // num_tasks).transpose(0, 1)
+                .contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return _TasksPacked.apply(g), None
+
+
+class _TasksPacked(torch.autograd.Function):
+    """``(T, R, C)`` -> the packed, contiguous ``(R, T·C)`` matrix."""
+
+    @staticmethod
+    def forward(ctx, xt):
+        t, r, c = xt.shape
+        ctx.num_tasks = t
+        return xt.transpose(0, 1).reshape(r, t * c)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _TasksFirst.apply(g, ctx.num_tasks)
+
+
 def _from_matrix(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     n, p, h, w = like.shape
     return y.view(n, h, w, p).permute(0, 3, 1, 2)
@@ -257,25 +310,32 @@ def batch_norm_apply(params: Params, state: State, x: torch.Tensor,
     statistics, plus the step row's running-stat update. ``fast_math``
     folds the f32 statistics into a scale/shift applied in x's dtype;
     the default path normalizes in f32 (the exact reference path).
+    It runs on each task's own ``(N·H·W, C)`` block (:class:`_TasksFirst`),
+    so a task's statistics and gradients are the same bits whatever
+    tasks share the call, as under the JAX package's per-task ``vmap``.
     ``training`` only tells the caller whether to keep the returned
     state, as in the JAX package."""
     idx, gamma, beta = _step_row(params, step)
+    t = params["gamma"].shape[0]
     x2 = _as_matrix(x)
-    xf = x2.float()
-    mean = xf.mean(0)
+    xt = _TasksFirst.apply(x2, t)
+    xf = xt.float()
+    gamma, beta = gamma.view(t, 1, -1), beta.view(t, 1, -1)
+    mean = xf.mean(1, keepdim=True)
     if fast_math:
-        var = torch.clamp(xf.square().mean(0) - mean.square(), min=0.0)
+        var = torch.clamp(xf.square().mean(1, keepdim=True)
+                          - mean.square(), min=0.0)
         inv = torch.rsqrt(var + eps)
         scale = (inv * gamma).to(x.dtype)
         shift = (beta - mean * inv * gamma).to(x.dtype)
-        y2 = x2 * scale + shift
+        yt = xt * scale + shift
     else:
-        var = xf.var(0, unbiased=False)
+        var = xf.var(1, unbiased=False, keepdim=True)
         inv = torch.rsqrt(var + eps)
-        y2 = ((xf - mean) * inv * gamma + beta).to(x.dtype)
+        yt = ((xf - mean) * inv * gamma + beta).to(x.dtype)
     new_state = _running_update(state, idx, mean, var, x2.shape[0],
                                 momentum)
-    return _from_matrix(y2, x), new_state
+    return _from_matrix(_TasksPacked.apply(yt), x), new_state
 
 
 def fused_batch_norm_relu_apply(

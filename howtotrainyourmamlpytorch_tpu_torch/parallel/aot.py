@@ -73,8 +73,10 @@ RECORD_SUFFIX = ".graph.json"
 # Bumped whenever the calling contract of a captured step changes: what
 # its static buffers hold and what a replay returns.
 LAYOUT_TAG = ("cudagraph;static-in,clone-out;"
-              "train:state,batch->state,metrics (state carried in-graph);"
-              "eval:state,batch->result;"
+              "train:state,batch->local graph->flat f32 sums->eager "
+              "all-reduce->update graph->state,metrics (state carried "
+              "in-graph);"
+              "eval:state,batch->local graph->result->eager all-gather;"
               "serve:state,support*3->adapted|params,adapted,query->logits")
 # Fingerprint directories kept by the GC beyond the age floor, and the
 # floor itself (the JAX module's retention rules).
@@ -162,13 +164,26 @@ def _cudnn_version() -> Optional[int]:
         return None
 
 
-def fingerprint_doc(cfg: MAMLConfig, device, world_size: int = 1
-                    ) -> Dict[str, Any]:
+def _world(world_size: Optional[int]) -> int:
+    if world_size is not None:
+        return int(world_size)
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
+    return multihost.process_count()
+
+
+def fingerprint_doc(cfg: MAMLConfig, device,
+                    world_size: Optional[int] = None) -> Dict[str, Any]:
     """Everything that determines the captured steps, as one JSON doc:
     the structural config, torch, CUDA and cuDNN versions, the device's
     name, the world size and the layout tag (where the JAX module has
     jax, jaxlib, the backend and the mesh). Recorded verbatim in
-    STORE.json so a mismatch can be read, not only detected."""
+    STORE.json so a mismatch can be read, not only detected.
+
+    ``world_size`` overrides the live process group's (the JAX module's
+    ``process_count``): ``scripts/torch_aot_prewarm.py --degraded``
+    records a survivor roster's steps from one process, into the
+    directory the survivor group's own fingerprint resolves after the
+    reshard."""
     device = torch.device(device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
@@ -180,12 +195,13 @@ def fingerprint_doc(cfg: MAMLConfig, device, world_size: int = 1
         "cuda": torch.version.cuda,
         "cudnn": _cudnn_version(),
         "device_name": name,
-        "world_size": int(world_size),
+        "world_size": _world(world_size),
         "layout": LAYOUT_TAG,
     }
 
 
-def store_fingerprint(cfg: MAMLConfig, device, world_size: int = 1) -> str:
+def store_fingerprint(cfg: MAMLConfig, device,
+                      world_size: Optional[int] = None) -> str:
     doc = fingerprint_doc(cfg, device, world_size)
     blob = json.dumps(doc, sort_keys=True, default=str).encode()
     return hashlib.sha256(blob).hexdigest()
@@ -289,32 +305,43 @@ def signature_of(*args: Any) -> List[List[Any]]:
 
 
 class GraphExec:
-    """One call of ``fn(*args, **kwargs)`` captured into a CUDA graph.
+    """One call of ``fn(*args, **kwargs)`` captured into CUDA graphs.
+
+    ``fn`` is one function, or a sequence of stages captured as one
+    graph each: stage 0 is called as ``fn[0](*args, **kwargs)``, stage
+    ``i`` as ``fn[i](*args, out)`` on stage ``i-1``'s output ``out``.
+    ``between(out)`` runs eagerly on that output between two stages'
+    replays (a rank's collective, which no graph holds); the warm-up and
+    the captures skip it, so capturing makes no collective.
 
     The constructor copies the tensor leaves of ``args`` into static
-    input buffers, runs ``fn`` once on them on a side stream (the
+    input buffers, runs the stages once on them on a side stream (the
     first-use work a capture cannot do: the kernel library and its
     shared-memory opt-in, cuDNN and cuBLAS handles, the allocator's
     blocks; its BN-kernel launches count as launches), then captures
-    one call on the thread that steps, in ``thread_local`` mode, so
+    each stage on the thread that steps, in ``thread_local`` mode, so
     another thread's CUDA work (a loader's copies, an L2 writer) cannot
-    fail the capture. ``launches``: the BN-kernel launches captured.
+    fail the capture; the stages' graphs share one memory pool.
+    ``launches``: the BN-kernel launches captured, ``stage_launches``
+    per stage.
 
     A call checks that its arguments have the captured tensor structure,
     shapes, dtypes and device (else ``TypeError``, before any buffer is
-    touched), copies them into the static buffers, replays, adds
-    ``launches`` to the BN kernel's count and returns the outputs as
-    clones, so nothing the caller keeps is overwritten by the next
-    replay. An output that IS a static input (a train step writes its
-    new state there inside the graph) is carried: when the next call
-    passes back the clone it was given, that buffer is not copied
-    again. Host values in the arguments are not read by a replay; host
-    values in the outputs are the captured call's (the caller patches
-    them)."""
+    touched), copies them into the static buffers, replays the stages
+    (``between`` after each but the last), adds ``launches`` to the BN
+    kernel's count and returns the last stage's outputs as clones, so
+    nothing the caller keeps is overwritten by the next replay. An
+    output that IS a static input (a train step writes its new state
+    there inside the graph) is carried: when the next call passes back
+    the clone it was given, that buffer is not copied again. Host values
+    in the arguments are not read by a replay; host values in the
+    outputs are the captured call's (the caller patches them)."""
 
-    def __init__(self, name: str, fn: Callable, args: Sequence[Any],
-                 kwargs: Optional[Dict[str, Any]] = None):
+    def __init__(self, name: str, fn, args: Sequence[Any],
+                 kwargs: Optional[Dict[str, Any]] = None, *,
+                 between: Optional[Callable[[Any], Any]] = None):
         self.name = name
+        stages = tuple(fn) if isinstance(fn, (tuple, list)) else (fn,)
         leaves, spec = flatten(list(args))
         if not leaves or any(not t.is_cuda for t in leaves):
             raise ValueError(f"{name}: a CUDA graph takes CUDA tensors")
@@ -324,21 +351,42 @@ class GraphExec:
         self.static = [t.detach().clone() for t in leaves]
         static_args = unflatten(spec, self.static)
         kwargs = dict(kwargs or {})
+        self._between = between
+
+        def run(i, prev):
+            if i == 0:
+                return stages[0](*static_args, **kwargs)
+            return stages[i](*static_args, prev)
+
         self.warmups = 1
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            fn(*static_args, **kwargs)
+            out = None
+            for i in range(len(stages)):
+                out = run(i, out)
         current.wait_stream(side)
         torch.cuda.synchronize(self.device)
-        self.graph = torch.cuda.CUDAGraph()
-        before = bn_act.captured
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            out = fn(*static_args, **kwargs)
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.stage_launches: List[int] = []
+        # Stage i's output, which stage i+1's graph reads in place.
+        self._stage_out: List[Any] = []
+        out, pool = None, None
+        for i in range(len(stages)):
+            graph = torch.cuda.CUDAGraph()
+            before = bn_act.captured
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                out = run(i, out)
+            pool = graph.pool() if pool is None else pool
+            self.graphs.append(graph)
+            self.stage_launches.append(bn_act.captured - before)
+            self._stage_out.append(out)
         torch.cuda.synchronize(self.device)
-        self.launches = bn_act.captured - before
+        self.graph = self.graphs[0]
+        self.launches = sum(self.stage_launches)
         self.capture_seconds = time.perf_counter() - t0
         self._outputs, self._out_spec = flatten(out)
         ids = {id(t): i for i, t in enumerate(self.static)}
@@ -348,9 +396,12 @@ class GraphExec:
         self.replays = 0
 
     def record(self) -> Dict[str, Any]:
-        """What the store keeps of this executable."""
+        """What the store keeps of this executable: one record for all
+        its stages' graphs (the BN launches captured in each)."""
         return {"name": self.name, "signature": self.signature,
                 "launches": self.launches,
+                "graphs": [{"stage": i, "launches": n}
+                           for i, n in enumerate(self.stage_launches)],
                 "capture_seconds": round(self.capture_seconds, 4),
                 "torch": torch.__version__}
 
@@ -365,7 +416,10 @@ class GraphExec:
         for i, (s, x) in enumerate(zip(self.static, leaves)):
             if self._given.get(i) is not x:
                 s.copy_(x)
-        self.graph.replay()
+        for i, graph in enumerate(self.graphs):
+            if i:
+                self._between(self._stage_out[i - 1])
+            graph.replay()
         bn_act.count_replay(self.launches)
         self.replays += 1
         outs = [t.clone() for t in self._outputs]
@@ -435,14 +489,15 @@ class AOTStore:
 
     @classmethod
     def from_config(cls, cfg: MAMLConfig, device, registry=None,
-                    writer: bool = True, world_size: int = 1
+                    writer: bool = True, world_size: Optional[int] = None
                     ) -> Optional["AOTStore"]:
-        """The wiring entry point: None when the subsystem is off."""
+        """The wiring entry point: None when the subsystem is off. The
+        world size is the live process group's unless given."""
         if not enabled(cfg):
             return None
-        return cls(cfg.aot_store_dir,
-                   store_fingerprint(cfg, device, world_size),
-                   doc=fingerprint_doc(cfg, device, world_size),
+        world = _world(world_size)
+        return cls(cfg.aot_store_dir, store_fingerprint(cfg, device, world),
+                   doc=fingerprint_doc(cfg, device, world),
                    registry=registry, writer=writer)
 
     # -- internals -------------------------------------------------------
@@ -746,10 +801,12 @@ def load_or_compile(store: Optional[AOTStore], name: str,
     fresh = {**compiled.record(), "signature": sig}
     if hit:
         record = store.load(name, count=False) or {}
-        if record.get("launches") != fresh.get("launches"):
+        if ((record.get("launches"), record.get("graphs"))
+                != (fresh.get("launches"), fresh.get("graphs"))):
             # The record says the step captured another number of BN
-            # launches: the executable is right by construction, the
-            # record is stale; count it and write the new one.
+            # launches (in all, or in one of its graphs): the executable
+            # is right by construction, the record is stale; count it
+            # and write the new one.
             store._count(ERRORS)
             if save:
                 store.save(name, fresh)
@@ -790,17 +847,25 @@ def _copy_into(dst: Any, src: Any) -> None:
 
 class TrainGraph:
     """The train step of one phase key ``(second_order, use_msl)`` as a
-    :class:`GraphExec`, called like the eager step.
+    :class:`GraphExec` of two graphs around the step's one collective,
+    called like the eager step: the rank-local accumulation
+    (``TrainPieces.local``) into its flat f32 buffer, the all-reduce
+    (``TrainPieces.reduce``: gloo staged through pinned host memory, or
+    NCCL) run eagerly on that static buffer, then the update
+    (``TrainPieces.update``) reading it. Without a process group the
+    reduce does nothing: one process's step is the world-1 case.
+    ``train_step`` is a step of ``meta/outer.py § make_train_step`` (its
+    ``pieces``).
 
-    The graph reads its host values from its own
+    The graphs read their host values from their own
     :class:`meta.outer.StepScalars` (the MSL epoch, the meta-LR and
     Adam's bias corrections), filled from ``state.opt_state.count`` and
-    ``epoch`` before every replay, and writes the new state into its
-    static state buffers inside the capture; a replay returns clones of
-    them with the counters of the step (``opt_state.count``, ``step``)
-    and the meta-LR of ``state.step`` set on the host, as the eager step
-    sets them. A step with ``health`` or ``plain`` runs the eager
-    step."""
+    ``epoch`` before every replay; the update writes the new state into
+    the static state buffers inside its graph, and a replay returns
+    clones of them with the counters of the step (``opt_state.count``,
+    ``step``) and the meta-LR of ``state.step`` set on the host, as the
+    eager step sets them. A step with ``health`` or ``plain`` runs the
+    eager step."""
 
     def __init__(self, cfg: MAMLConfig, train_step: Callable,
                  phase_key: Tuple[bool, bool], state, batch, epoch: int):
@@ -809,14 +874,22 @@ class TrainGraph:
         self.cfg = cfg
         self.phase_key = phase_key
         self._eager = train_step
+        pieces = train_step.pieces
         self._schedule = meta_lr_schedule(cfg)
         self.scalars = StepScalars(batch.support_x.device).fill(
             cfg, state.opt_state.count, epoch)
         so, msl = phase_key
+        layout = []
 
-        def body(state, batch):
-            new, m = train_step(state, batch, epoch, second_order=so,
-                                use_msl=msl, scalars=self.scalars)
+        def local(state, batch):
+            flat, lay = pieces.local(state, batch, self.scalars.epoch,
+                                     second_order=so, use_msl=msl)
+            layout[:] = [lay]
+            return flat
+
+        def update(state, batch, flat):
+            new, m = pieces.update(state, flat, layout[0],
+                                   scalars=self.scalars)
             for a, b in ((state.params, new.params),
                          (state.lslr, new.lslr),
                          (state.bn_state, new.bn_state),
@@ -825,8 +898,8 @@ class TrainGraph:
                 _copy_into(a, b)
             return state, (m.loss, m.accuracy, m.support_loss)
 
-        self.exec = GraphExec(train_exec_name(phase_key), body,
-                              (state, batch))
+        self.exec = GraphExec(train_exec_name(phase_key), (local, update),
+                              (state, batch), between=pieces.reduce)
         self.launches = self.exec.launches
 
     def record(self) -> Dict[str, Any]:
@@ -856,9 +929,12 @@ class TrainGraph:
 
 
 class EvalGraph:
-    """The eval step as a :class:`GraphExec` over ``(params, lslr,
-    bn_state, batch)``, called like the eager step (``plain`` runs the
-    eager one)."""
+    """The eval step as a :class:`GraphExec` of the rank-local eval
+    (``EvalPieces.local``) over ``(params, lslr, bn_state, batch)``,
+    then the step's one all-gather run eagerly on the replay's outputs
+    (``EvalPieces.gather``; nothing without a process group). Called
+    like the eager step (``plain`` runs the eager one); ``eval_step`` is
+    a step of ``meta/outer.py § make_eval_step`` (its ``pieces``)."""
 
     @staticmethod
     def signature(state, batch) -> List[List[Any]]:
@@ -869,9 +945,11 @@ class EvalGraph:
         from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
             AdamState, MetaTrainState)
         self._eager = eval_step
+        pieces = eval_step.pieces
+        self._gather = pieces.gather
 
         def body(params, lslr, bn_state, batch):
-            return tuple(eval_step(MetaTrainState(
+            return tuple(pieces.local(MetaTrainState(
                 params=params, lslr=lslr, bn_state=bn_state,
                 opt_state=AdamState(count=0, mu={}, nu={})), batch))
 
@@ -887,9 +965,8 @@ class EvalGraph:
             EvalResult)
         if plain:
             return self._eager(state, batch, plain=True)
-        return EvalResult(*self.exec(state.params, state.lslr,
-                                     state.bn_state, batch))
-
+        return EvalResult(*self._gather(self.exec(
+            state.params, state.lslr, state.bn_state, batch)))
 
 
 def serve_adapt_args(cfg: MAMLConfig, state, support_rows: int,

@@ -36,7 +36,7 @@ import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.meta.outer import (
-    make_eval_step, make_train_step)
+    EvalPieces, TrainPieces, make_eval_step, make_train_step)
 from howtotrainyourmamlpytorch_tpu_torch.parallel import multihost
 
 
@@ -62,25 +62,16 @@ class Mesh:
         bits)."""
         return multihost.is_initialized()
 
-    def all_reduce_mean(self, tensors: Sequence[torch.Tensor]
-                        ) -> List[torch.Tensor]:
-        """The mean over ranks of each tensor, in ONE all-reduce: the
-        tensors are flattened into one f32 buffer (every leaf here is
-        f32; a bf16 leaf widens exactly), summed over the ranks, divided
-        by the world and unflattened into their shapes and dtypes. No
-        process group: the tensors themselves."""
-        if not self.communicates:
-            return list(tensors)
-        flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
-                          for t in tensors])
-        multihost.all_reduce_sum(flat, self.group)
-        flat /= self.world
-        out, i = [], 0
-        for t in tensors:
-            n = t.numel()
-            out.append(flat[i:i + n].view(t.shape).to(t.dtype))
-            i += n
-        return out
+    def reduce_mean_(self, flat: torch.Tensor) -> torch.Tensor:
+        """The train step's one fused all-reduce, in place: ``flat`` (the
+        meta-gradient, loss and aux in one f32 buffer, ``meta/outer.py §
+        pack_f32``) summed over the ranks and divided by the world (every
+        rank ends with the same bits). No process group: ``flat``
+        untouched."""
+        if self.communicates:
+            multihost.all_reduce_sum(flat, self.group)
+            flat /= self.world
+        return flat
 
     def all_gather(self, tensors: Sequence[torch.Tensor]
                    ) -> List[torch.Tensor]:
@@ -141,11 +132,16 @@ class MeshPlan(NamedTuple):
     ``train_steps`` maps the two MAML++ phase flags ``(second_order,
     use_msl)`` to that step with its flags bound. ``eval_step(state,
     local_batch)`` returns the whole eval batch's results on every
-    rank."""
+    rank. ``train_pieces`` and ``eval_pieces`` are the two steps' pieces
+    (``meta/outer.py § TrainPieces``, ``§ EvalPieces``): the rank-local
+    work and its one collective, which the warm start captures apart
+    (``parallel/aot.py``)."""
     mesh: Mesh
     train_step: Callable
     train_steps: Dict[Tuple[bool, bool], Callable]
     eval_step: Callable
+    train_pieces: TrainPieces
+    eval_pieces: EvalPieces
 
 
 def _named_phase_fn(train_step, so: bool, msl: bool):
@@ -201,12 +197,14 @@ def make_sharded_steps(cfg: MAMLConfig, apply_fn, mesh: Mesh) -> MeshPlan:
         logging.getLogger(__name__).warning(msg)
         cfg = cfg.replace(task_microbatches=eff)
     train_step = make_train_step(cfg, apply_fn, reduce_axes=mesh)
+    eval_step = make_eval_step(cfg, apply_fn, gather_axes=mesh)
     train_steps = {(so, msl): _named_phase_fn(train_step, so, msl)
                    for so in (False, True) for msl in (False, True)}
     return MeshPlan(mesh=mesh, train_step=train_step,
-                    train_steps=train_steps,
-                    eval_step=make_eval_step(cfg, apply_fn,
-                                             gather_axes=mesh))
+                    train_steps=train_steps, eval_step=eval_step,
+                    # None where a caller wrapped the step builders.
+                    train_pieces=getattr(train_step, "pieces", None),
+                    eval_pieces=getattr(eval_step, "pieces", None))
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,16 @@ last-line artifact and its exit codes, and no JAX:
    and one reshard. Then a cold 2-rank run launched directly at the
    survivor geometry (``MAML_ELASTIC_*`` set) from a snapshot of the
    same committed state must end with the same final checkpoint bytes.
-   (The JAX harness's "zero compiles" check needs an AOT store, which
-   the port does not have: eager PyTorch compiles nothing.)
+   On the card the leg arms the warm-start store as the JAX harness
+   does: ``scripts/torch_aot_prewarm.py --degraded 1 --degraded-only``
+   runs as a child first (it fills the survivor roster's fingerprint
+   directory, and builds the kernel if no process has), the ranks run
+   with ``aot_store_dir`` (their steps as CUDA graphs around each rank's
+   collective), and each survivor must reach
+   its first step with ``compiles_before_first_step == 0``, no miss, no
+   ``nvcc`` run and no executable demoted to the eager step; the cold
+   run is eager, so the survivors' graphs are held bitwise to it. On the
+   CPU (no graphs) the leg runs without a store.
 
 The ranks are started here with the ``env://`` variables set (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
@@ -163,16 +171,26 @@ def rank_main(argv) -> int:
     from howtotrainyourmamlpytorch_tpu_torch.resilience import elastic
     roster = elastic.parse_roster_env()
     rank = int(os.environ.get("RANK", "0"))
+    from howtotrainyourmamlpytorch_tpu_torch.ops import build
     rec = {"host": roster.roster[rank] if roster else rank,
            "generation": roster.generation if roster else 0,
            "rank": rank, "world": int(os.environ.get("WORLD_SIZE", "1")),
            "pid": os.getpid(), "t_start": time.time(), "t_first_step": None,
-           "start_iter": None, "step_ms": [], "launches": 0, "end": None}
+           "start_iter": None, "step_ms": [], "launches": 0, "end": None,
+           "warm_start": None, "aot": {}, "nvcc_runs": 0}
     path = os.path.join(record_dir,
                         f"rank_h{rec['host']}_g{rec['generation']}.json")
+    builders = []
 
     def dump(end: str) -> None:
-        rec.update(end=end, launches=bn_act.launches, t_end=time.time())
+        rec.update(end=end, launches=bn_act.launches, t_end=time.time(),
+                   nvcc_runs=build.nvcc_runs)
+        if builders:
+            # This rank's warm start: its row and its own aot/* counters.
+            rec["warm_start"] = builders[-1].warm_start_row
+            rec["aot"] = {k: v for k, v in
+                          builders[-1].registry.snapshot().items()
+                          if k.startswith("aot/")}
         tmp = f"{path}.tmp"
         with open(tmp, "w") as f:
             json.dump(rec, f)
@@ -196,6 +214,7 @@ def rank_main(argv) -> int:
 
         def append(self, builder):
             super().append(builder)
+            builders.append(builder)
             rec["start_iter"] = builder.current_iter
             step = builder.train_step
 
@@ -610,18 +629,46 @@ def run_parity(pod: Pod) -> dict:
     return facts
 
 
+def elastic_cfg(pod: Pod, eout: str, store_root=None,
+                n: int = ELASTIC_PROCESSES) -> dict:
+    """The elastic leg's config: ``n`` ranks with ``elastic_mode=1``, 4
+    tasks per rank (4n / (n - 1) per survivor), on the warm-start store
+    at ``store_root`` when given."""
+    warm = {"aot_store_dir": store_root} if store_root else {}
+    return pod.cfg(eout, n, batch_size=4 * n, elastic_mode=1,
+                   elastic_max_lost_hosts=1, **warm)
+
+
 def run_elastic(pod: Pod, n: int = ELASTIC_PROCESSES,
-                kill_host: int = ELASTIC_KILL_HOST) -> dict:
+                kill_host: int = ELASTIC_KILL_HOST,
+                prewarmed: str = "") -> dict:
     """Phase 4: kill host ``kill_host`` of ``n`` with ``elastic_mode=1``;
     the survivors reshard to generation 1 and finish; a cold run at the
     survivor geometry from a snapshot of the committed state must end
-    with the same final checkpoint bytes."""
+    with the same final checkpoint bytes. ``prewarmed``: the artifact
+    file of a ``--degraded 1 --degraded-only`` prewarm a caller already
+    ran on :func:`elastic_cfg`, whose store the ranks then use (without
+    it, on the card, the leg runs that prewarm first)."""
     from howtotrainyourmamlpytorch_tpu_torch.resilience import elastic as el
     eout = os.path.join(pod.out, "elastic")
-    batch = 4 * n  # 4 tasks per rank, then 4n / (n - 1) per survivor
-    cfg = pod.cfg(eout, n, batch_size=batch, elastic_mode=1,
-                  elastic_max_lost_hosts=1)
+    # On the card the store is armed: the survivor roster prewarmed
+    # first (its child builds the kernel if no process has), every
+    # rank's steps run as graphs (gloo staged collectives between them).
+    store = pod.device != "cpu"
+    prewarm = None
+    if prewarmed:
+        with open(prewarmed) as f:
+            prewarm = json.load(f)
+    root = (os.path.dirname(prewarm["store_dir"]) if prewarm
+            and prewarm.get("store_dir") else os.path.join(eout,
+                                                           "aot_store"))
+    cfg = elastic_cfg(pod, eout, root if store else None, n)
     at = kill_iter(cfg)
+    if store and prewarm is None:
+        prewarm = run_prewarm(eout, cfg, pod.timeout)
+    if prewarm is not None and not prewarm.get("ok"):
+        return {"kill_ok": False, "ok": False, "store": True,
+                "prewarm": prewarm}
     records = os.path.join(eout, "records")
     procs = launch_pod(eout, cfg, n, pod.device, records,
                        fault_host=kill_host, fault_spec=f"kill_peer@{at}")
@@ -690,9 +737,24 @@ def run_elastic(pod: Pod, n: int = ELASTIC_PROCESSES,
         [-1],
         "test_protocol_ran": "test:" in logs[survivors[0]],
         "final_crc": elastic_crc,
+        "store": store,
+        "prewarm": prewarm,
+        "generation1_warm_start": [r.get("warm_start") for r in gen1],
+        "generation1_aot": [r.get("aot") for r in gen1],
+        "generation1_nvcc_runs": [r.get("nvcc_runs") for r in gen1],
     }
+    # Each survivor's first step after the reshard: every graph captured
+    # from a prewarmed record, no kernel build, none demoted.
+    facts["warm_ok"] = (not store) or all(
+        (r.get("warm_start") or {}).get("compiles_before_first_step") == 0
+        and (r.get("warm_start") or {}).get("aot_misses") == 0
+        and (r.get("warm_start") or {}).get("aot_hits", 0) >= 1
+        and r.get("nvcc_runs") == 0
+        and (r.get("aot") or {}).get("aot/exec_fallbacks", 1) == 0
+        for r in gen1)
     iters = cfg["total_iter_per_epoch"]
     facts["kill_ok"] = bool(
+        facts["warm_ok"] and
         ends[kill_host][0] == -9
         and all(c == 0 for c in facts["survivor_exit_codes"])
         and facts["reshard_rows"] >= 1
@@ -713,8 +775,7 @@ def run_elastic(pod: Pod, n: int = ELASTIC_PROCESSES,
     roster = ",".join(str(h) for h in survivors)
     cold_records = os.path.join(cold_root, "records")
     ends = watch(launch_pod(
-        cold_root, pod.cfg(cold_root, n, batch_size=batch, elastic_mode=1,
-                           elastic_max_lost_hosts=1),
+        cold_root, elastic_cfg(pod, cold_root, n=n),
         len(survivors), pod.device, cold_records, tag="cold",
         env_extra={el.GEN_ENV: "1", el.ROSTER_ENV: roster,
                    el.ORIG_ENV: str(n)}), pod.timeout)
@@ -737,6 +798,37 @@ def run_elastic(pod: Pod, n: int = ELASTIC_PROCESSES,
         facts["cold_log_tail"] = log_text(
             os.path.join(cold_root, "cold0.log"))[-1500:]
     return facts
+
+
+def run_prewarm(out: str, cfg: dict, timeout: float) -> dict:
+    """``scripts/torch_aot_prewarm.py --degraded 1 --degraded-only`` on
+    ``cfg`` as a child (tracked, so reaped with the harness): the
+    survivor roster's executables and the kernel build; its artifact
+    with its exit code."""
+    path = os.path.join(out, "prewarm_cfg.json")
+    os.makedirs(out, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(out, "prewarm.log"), "w") as log:
+        proc = reaper.track(subprocess.Popen(
+            [sys.executable, os.path.join(_SCRIPTS, "torch_aot_prewarm.py"),
+             "--config", path, "--degraded", "1", "--degraded-only"],
+            env=base_env(), stdout=subprocess.PIPE, stderr=log, text=True,
+            cwd=_REPO))
+    try:
+        stdout, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return {"ok": False, "exit_code": None, "error": "timed out"}
+    lines = stdout.strip().splitlines()
+    try:
+        doc = json.loads(lines[-1]) if lines else {}
+    except ValueError:
+        doc = {"error": lines[-1][-500:]}
+    doc["exit_code"] = proc.returncode
+    doc["ok"] = bool(doc.get("ok")) and proc.returncode == 0
+    return doc
 
 
 def _report_elastic(events: list):
@@ -773,6 +865,11 @@ def main(argv=None) -> int:
                     help="cluster_lease_interval_s")
     ap.add_argument("--timeout", type=float, default=RUN_TIMEOUT_S,
                     help="each leg's limit in seconds for its ranks")
+    ap.add_argument("--elastic-prewarm", default="", metavar="FILE",
+                    help="the elastic leg's survivor roster is already "
+                         "prewarmed: the artifact of that prewarm "
+                         "(run on elastic_cfg's config), whose store the "
+                         "ranks use")
     args = ap.parse_args(argv)
     # Every rank this harness starts ends with it, on SIGTERM too.
     reaper.install()
@@ -820,7 +917,7 @@ def main(argv=None) -> int:
         elif phase == "parity":
             facts = run_parity(pod)
         elif phase == "elastic":
-            facts = run_elastic(pod)
+            facts = run_elastic(pod, prewarmed=args.elastic_prewarm)
         else:
             raise SystemExit(f"unknown phase {phase!r}")
         facts["seconds"] = round(time.perf_counter() - t0, 1)

@@ -869,3 +869,78 @@ def test_trial_leg_on_the_card(cuda_device, tmp_path):
     assert ok["aot_hits"] is None and graph["aot_hits"] == 0
     assert np.isfinite(graph["loss"]) and np.isfinite(ok["loss"])
     assert "bn_backend='pallas'" in refused["error"]
+
+
+def test_rank_step_graphs_replay_bitwise_on_a_one_rank_gloo_group(
+        cuda_device, tmp_path):
+    """A one-rank gloo group on the card (collectives staged through
+    pinned host memory): each phase key's train step as two graphs, the
+    rank-local accumulation and the update, around its all-reduce run
+    eagerly between them (``parallel/aot.py § TrainGraph``), replays
+    bitwise the eager rank step over two steps; the eval graph and its
+    all-gather bitwise the eager eval step; the BN kernel's launches as
+    derived (the capture's warm-up counts, each replay its graphs')."""
+    import torch.distributed as dist
+    from howtotrainyourmamlpytorch_tpu_torch.device import numerics_policy
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import (aot, mesh,
+                                                             multihost)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        cfg = MAMLConfig(dataset_name="synthetic", image_height=12,
+                         image_width=12, image_channels=3,
+                         num_classes_per_set=3, num_samples_per_class=2,
+                         num_target_samples=2, cnn_num_filters=8,
+                         num_stages=2, number_of_training_steps_per_iter=2,
+                         number_of_evaluation_steps_per_iter=2,
+                         batch_size=4, task_microbatches=2,
+                         bn_backend="pallas", bn_fast_math=True)
+        init, apply = make_model(cfg)
+        m = mesh.make_mesh(cfg)
+        assert m.communicates and multihost.staged(
+            torch.zeros(1, device=cuda_device))
+        plan = mesh.make_sharded_steps(cfg, apply, m)
+        state0 = init_train_state(cfg, init, seed=0, device=cuda_device)
+        batches = MetaLearningDataLoader(cfg, device=cuda_device)\
+            .get_train_batches(0, 2)
+        steps = [next(batches) for _ in range(2)]
+        batches.close()
+        zero = aot.zero_episode(cfg, cfg.batch_size, cuda_device)
+
+        def leaves(s):
+            # By sorted keys: a replay's trees are rebuilt in that order.
+            return aot.flatten({"p": s.params, "l": s.lslr,
+                                "b": s.bn_state, "m": s.opt_state.mu,
+                                "v": s.opt_state.nu})[0]
+
+        with numerics_policy(cfg.compute_dtype, deterministic=True):
+            for (so, msl), epoch, per_micro in (
+                    ((False, True), 0, 2 * (2 + 2 * 2)),
+                    ((True, False), 41, 2 * (2 + 1 * 2))):
+                bn_act.reset_launches()
+                graph = aot.TrainGraph(cfg, plan.train_step, (so, msl),
+                                       state0, zero, epoch)
+                assert len(graph.exec.graphs) == 2
+                assert graph.exec.stage_launches == [2 * per_micro, 0]
+                eager = got = state0
+                for b in steps:
+                    eager, em = plan.train_step(eager, b, epoch,
+                                                second_order=so, use_msl=msl)
+                    got, gm = graph(got, b, epoch, second_order=so,
+                                    use_msl=msl)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(x, y) for x, y in
+                               zip(leaves(eager), leaves(got)))
+                    assert all(torch.equal(x, y)
+                               for x, y in zip(em[:3], gm[:3]))
+                    assert (got.step, got.opt_state.count) == (
+                        eager.step, eager.opt_state.count)
+                # The warm-up, two eager steps and two replays.
+                assert bn_act.launches == 5 * 2 * per_micro
+            ev_graph = aot.EvalGraph(plan.eval_step, got, zero)
+            want = plan.eval_step(got, steps[0])
+            res = ev_graph(got, steps[0])
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(want, res))
+    finally:
+        dist.destroy_process_group()

@@ -45,12 +45,14 @@ BASE = dict(experiment_name="parity", dataset_name="synthetic",
 PAIRS = {"remat": ({}, {"remat_policy": "nothing"}),
          "fast_math": ({}, {"bn_fast_math": True}),
          "ln_microbatch": ({"norm_layer": "layer_norm"},
-                           {"task_microbatches": 2})}
+                           {"task_microbatches": 2}),
+         "bn_microbatch": ({}, {"task_microbatches": 2})}
 # (pair, tolerance) -> (mode, exit code), in both packages.
 CASES = {("remat", 5e-3): ("bitwise", 0), ("fast_math", 5e-3): ("fail", 2),
          ("fast_math", 0.0): ("fail", 2),
          ("fast_math", 2.0): ("tolerance", 0),
-         ("ln_microbatch", 5e-3): ("tolerance", 0)}
+         ("ln_microbatch", 5e-3): ("tolerance", 0),
+         ("bn_microbatch", 5e-3): ("tolerance", 0)}
 # The bound on a ``tolerance`` pair's divergence where the gate's
 # tolerance is the default (the branch test at 2.0 is not held to it).
 DIVERGENCE_BOUND = 1e-3
