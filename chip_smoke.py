@@ -960,7 +960,7 @@ def check_bn_act(device_name: str, card: str) -> dict:
         if per_call != 1:
             raise AssertionError(f"bn_act {r}x{p}: {per_call} device "
                                  f"kernels per call, want 1")
-        nbytes = 2 * r * p * x.element_size() + 4 * p * 4
+        nbytes = bn_act.bn_act_bytes(r, p, x.element_size())
         flops = 8 * r * p   # stats 3/elem, normalize+act 5/elem
         bound_s = max(nbytes / bw, flops / F32_FLOP_PER_S)
         dname = "bf16" if dtype == bf16 else "f32"
@@ -986,6 +986,7 @@ def check_bn_act(device_name: str, card: str) -> dict:
     print(f"bn_act timing: {len(retakes)} profiler window(s) retaken for "
           f"lost device records over {2 * len(rows)} device-time "
           f"measurements {json.dumps(retakes)} ({card})", flush=True)
+    _bn_act_counted_bytes(gen, bw, card)
     graphs = _bn_act_graphs(card)
     top = stages[0]
     return {"name": "bn_act", "route": "cuda",
@@ -998,6 +999,45 @@ def check_bn_act(device_name: str, card: str) -> dict:
             "library_device_ms": top["library_device_ms"],
             "shape": top["shape"], "dtype": "bfloat16", "stages": stages,
             "device_window_retakes": len(retakes), "graphs": graphs}
+
+
+# PERF.md § 6's bound of the BN kernel at S0 (bf16), in ms.
+S0_BOUND_MS = 0.0809
+
+
+def _bn_act_counted_bytes(gen, bw: float, card: str) -> None:
+    """The cost database's bytes of one kernel call at S0 (bf16): what
+    the byte counter takes from the wrapper's report
+    (``telemetry/profiler.py § count_costs``, ``ops/bn_act.py §
+    byte_sinks``) must be ``bn_act_bytes``, with and without autograd;
+    that rule over the card's HBM rate is printed beside PERF.md's
+    bound."""
+    import torch
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
+    r, p = SHAPES[0]
+    x = (torch.randn(r, p, device="cuda", generator=gen) * 2.0
+         + 0.3).to(torch.bfloat16)
+    gamma = torch.rand(p, device="cuda", generator=gen) + 0.5
+    beta = torch.randn(p, device="cuda", generator=gen) * 0.1
+    rule = bn_act.bn_act_bytes(r, p, 2)
+    with torch.no_grad():
+        _, plain = profiler.count_costs(
+            lambda: bn_act.bn_act(x, gamma, beta, 1e-5, 0.0))
+    xs = x.clone().requires_grad_(True)
+    _, grad = profiler.count_costs(
+        lambda: bn_act.bn_act(xs, gamma, beta, 1e-5, 0.0))
+    torch.cuda.synchronize()
+    print(f"bn_act bytes at S0 {r}x{p} bf16: counted {plain['bytes_accessed']:.0f}"
+          f" (no grad) and {grad['bytes_accessed']:.0f} (autograd) from the "
+          f"wrapper's report; rule 2*R*P*2 + 16*P = {rule} B, over "
+          f"{bw / 1e12:.2f} TB/s {rule / bw * 1e3:.4f} ms beside PERF.md's "
+          f"bound {S0_BOUND_MS} ms (x and y alone "
+          f"{2 * r * p * 2 / bw * 1e3:.4f} ms) ({card})", flush=True)
+    if plain["bytes_accessed"] != rule or grad["bytes_accessed"] != rule:
+        raise AssertionError(f"bn_act at S0: counted bytes {plain}, {grad}"
+                             f", the rule {rule}")
+    del x, xs
 
 
 GRAPH_REPLAYS = 3
@@ -1354,24 +1394,25 @@ def _print_sample(label: str, row: dict, card: str) -> None:
           f"{json.dumps(regions)}; FLOPs {row['flops']}, MFU "
           f"{'n/a' if mfu is None else f'{mfu:.5f}'} against "
           f"{row['peak_flops']:.3g} FLOP/s ({row['peak_flops_source']}); "
+          f"roofline {json.dumps(row.get('roofline'))}; "
           f"device records lost {row['device_records_lost']} ({card})",
           flush=True)
 
 
 def _sample_window(fn, name: str) -> dict:
     """One window of the port's perf sampler around ``fn`` (one train
-    step of phase card ``name``), with its FLOPs counted first; the
+    step of phase card ``name``), with its FLOPs and bytes counted first; the
     summary row, with the BN kernel's launches inside the window under
     ``bn_act_launched``. Fails if the sampler counts an error."""
     from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
     from howtotrainyourmamlpytorch_tpu_torch.telemetry import (
         MetricsRegistry)
     from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
-    _, flops = profiler.count_flops(fn)
+    _, costs = profiler.count_costs(fn)
     reg = MetricsRegistry()
     sampler = profiler.PerfSampler(1, registry=reg, device="cuda")
     sampler.register_card(name, profiler.build_cost_card(
-        name, flops=flops, kind=sampler.kind, peaks=sampler.peaks))
+        name, **costs, kind=sampler.kind, peaks=sampler.peaks))
     if not sampler.start_window(0):
         raise AssertionError(f"{name}: the sampler did not start")
     before = bn_act.launches
@@ -2500,8 +2541,9 @@ class _RecordsDropped(AssertionError):
 
 def _check_perf_row(r: dict, bn_per_step) -> None:
     """One ``perf_profile`` row: no records lost, fractions summing to 1,
-    every label of its step, the step's BN-kernel records and an MFU in
-    (0, 1]. Raises :class:`_RecordsDropped` when records are all that is
+    every label of its step, the step's BN-kernel records, an MFU in
+    (0, 1] and a roofline entry with a known bound and a fraction of its
+    ceiling (not bounded: the count is per eager op, PERF.md § 7). Raises :class:`_RecordsDropped` when records are all that is
     missing, AssertionError on any other defect, a shortfall of BN-kernel
     records that ``device_records_lost`` does not count among them."""
     total = (r["device_compute_frac"] + r["device_idle_frac"]
@@ -2521,6 +2563,14 @@ def _check_perf_row(r: dict, bn_per_step) -> None:
                              f"shortfall as lost: {said}")
     if r["device_records_lost"]:
         raise _RecordsDropped(said)
+    # The cost card's roofline (telemetry/profiler.py § attach_card):
+    # a known bound and the fraction of its ceiling, whatever its value.
+    rl = (r.get("roofline") or {}).get(r["top_executable"]) or {}
+    if (rl.get("bound") not in ("compute", "memory")
+            or not isinstance(rl.get("frac_of_ceiling"), float)):
+        raise AssertionError(f"telemetry: no known bound or "
+                             f"frac_of_ceiling in the roofline entry {rl}"
+                             f": {said}")
     sound = (abs(total - 1) <= 1e-6 and bn <= want
              and r["mfu"] is not None and 0 < r["mfu"] <= 1)
     if sound and not missing and bn == want:
@@ -2697,6 +2747,12 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
         for r in perf:
             _print_sample(f"telemetry cli sample at iter {r['iter']} "
                           f"({r['top_executable']})", r, card)
+        doc = profiler.load_profile(os.path.join(logs,
+                                                 profiler.PROFILE_FILE))
+        for n, c in sorted(((doc or {}).get("cards") or {}).items()):
+            print(f"telemetry cli logs/PROFILE.json card {n} (the phase's "
+                  f"first eager step, counted): {_card_text(c)} ({card})",
+                  flush=True)
 
         # What health and a sample window add to one step, and the
         # program's reading beside _profiled's, on the run's final state.
@@ -2757,7 +2813,7 @@ def cli_telemetry(entry: dict, card: str, ref: dict) -> None:
         ms = {"off": [], "health": [], "window": []}
         sampler = profiler.PerfSampler(1, device="cuda")
         sampler.register_card(name, profiler.build_cost_card(
-            name, flops=profiler.count_flops(step)[1], kind=sampler.kind,
+            name, **profiler.count_costs(step)[1], kind=sampler.kind,
             peaks=sampler.peaks))
 
         def window():
@@ -5296,6 +5352,80 @@ def _trees_bitwise(a, b) -> list:
             if x.shape != y.shape or not torch.equal(x, y)]
 
 
+def _card_faults(name: str, card, fingerprint: str) -> list:
+    """What a cost card of the store lacks: FLOPs, bytes accessed, a
+    peak memory, a compute or memory bound, the store's fingerprint."""
+    if card is None:
+        return [f"{name}: no cost card"]
+    faults = [f"{name}: {key} {card.get(key)!r}" for key, ok in (
+        ("flops", (card.get("flops") or 0) > 0),
+        ("bytes_accessed", (card.get("bytes_accessed") or 0) > 0),
+        ("memory", ((card.get("memory") or {}).get("peak_bytes") or 0) > 0),
+        ("bound", card.get("bound") in ("compute", "memory")),
+        ("fingerprint", card.get("fingerprint") == fingerprint[:16]))
+        if not ok]
+    return faults
+
+
+def _card_text(card: dict) -> str:
+    """A cost card on one line: FLOPs, bytes, intensity, bound, memory."""
+    mem = {k.replace("_size_in_bytes", ""): v
+           for k, v in (card.get("memory") or {}).items()}
+    ai = card.get("arithmetic_intensity")
+    return (f"{card['flops'] / 1e9:.3f} GFLOP, "
+            f"{card['bytes_accessed'] / 1e9:.3f} GB accessed, AI "
+            f"{'n/a' if ai is None else f'{ai:.2f}'} FLOP/B (ridge "
+            f"{card.get('ridge_flops_per_byte')}), bound {card['bound']}, "
+            f"memory {json.dumps(mem)}")
+
+
+def _warm_cost_cards(leg_out: str, runs: str, pre: dict,
+                     card: str) -> list:
+    """Phase 14 (c)'s cost cards: the prewarm's store holds one for each
+    executable it made; the warm CLI child's ``logs/PROFILE.json``
+    carries them, and the store's file was last written before that
+    child's config was (the child counted nothing again); the cold CLI
+    child's logs carry its own store's cards. Returns the faults."""
+    import glob
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
+    faults = []
+    paths = glob.glob(os.path.join(leg_out, "warm_store", "*",
+                                   profiler.PROFILE_FILE))
+    doc = profiler.load_profile(paths[0]) if len(paths) == 1 else None
+    if doc is None:
+        return [f"(c) prewarm store: cost databases {paths}"]
+    names = sorted(e["name"] for e in pre.get("executables") or [])
+    for n in names:
+        faults += [f"(c) {f}" for f in _card_faults(
+            n, doc["cards"].get(n), doc["fingerprint"])]
+    warm = profiler.load_profile(os.path.join(
+        leg_out, "chaos_warm", "logs", profiler.PROFILE_FILE))
+    child_cfg = os.path.join(leg_out, "chaos_warm.json")
+    recounted = doc["written_ts"] >= os.path.getmtime(child_cfg)
+    cold_store = glob.glob(os.path.join(os.path.dirname(runs), "cold_store",
+                                        "*", profiler.PROFILE_FILE))
+    cold_doc = (profiler.load_profile(cold_store[0]) if len(cold_store) == 1
+                else None)
+    cold_logs = profiler.load_profile(os.path.join(
+        runs, "cold", "logs", profiler.PROFILE_FILE))
+    print(f"warm start (c) cost cards: the prewarm's store "
+          f"{sorted(doc['cards'])} for executables {names}; the warm CLI "
+          f"child's logs/PROFILE.json "
+          f"{sorted((warm or {}).get('cards') or {})}, the store last "
+          f"written {'after' if recounted else 'before'} the child began; "
+          f"the cold CLI child's store "
+          f"{sorted((cold_doc or {}).get('cards') or {})} and logs "
+          f"{sorted((cold_logs or {}).get('cards') or {})} ({card})",
+          flush=True)
+    if (not names or warm is None or warm["cards"] != doc["cards"]
+            or recounted or cold_doc is None or not cold_doc["cards"]
+            or cold_logs is None or cold_logs["cards"] != cold_doc["cards"]):
+        faults.append("(c) cost cards: the warm child's logs do not carry "
+                      "the prewarm's cards, the child wrote the store, or "
+                      "the cold child's logs lack its store's cards")
+    return faults
+
+
 def warm_start(entry: dict, card: str) -> None:
     """Phase 14: the warm-start subsystem at the flagship's full width
     (``parallel/aot.py``; module docstring). (a) serving: an eager
@@ -5310,8 +5440,17 @@ def warm_start(entry: dict, card: str) -> None:
     launches as derived; step wall times and one profiled step each
     printed, nothing claimed. (c) warm restart: the prewarm script and a
     cold CLI child run beside (a) and (b); then the CLI child on the warm
-    store: exit 0, hits > 0, misses 0, no nvcc run. Adds the launches of
-    (a) and (b) to ``entry``."""
+    store: exit 0, hits > 0, misses 0, no nvcc run. The cost database
+    (``AOTStore.record_cost_card``): the cold engine counts a card for
+    every adapt and predict extent, the warm one none, and
+    ``write_profile_json`` copies them; (b)'s store holds a card for each
+    phase key and the eval step (the flagship ``train_so1_msl0`` card,
+    its counted warm-up's wall and its bytes over a profiled replay's
+    device time printed); the prewarm's store a card for each
+    executable, which the warm CLI child's ``logs/PROFILE.json`` carries
+    without writing the store. Each card has FLOPs, bytes, a peak memory,
+    a compute or memory bound and the store's fingerprint. Adds the
+    launches of (a) and (b) to ``entry``."""
     import shutil
     import tempfile
     import numpy as np
@@ -5327,6 +5466,9 @@ def warm_start(entry: dict, card: str) -> None:
     from howtotrainyourmamlpytorch_tpu_torch.parallel import aot
     from howtotrainyourmamlpytorch_tpu_torch.serve import (
         FewShotRequest, ServingEngine)
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import (
+        MetricsRegistry)
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
 
     t_phase = time.perf_counter()
     seconds = {}
@@ -5375,10 +5517,11 @@ def warm_start(entry: dict, card: str) -> None:
             for _ in range(2 * cfg.serve_batch_tasks)]
         store_a = os.path.join(tmp, "serve_store")
         served, counts = {}, {}
+        serve_cfg = cfg.replace(aot_store_dir=store_a, experiment_root=tmp,
+                                experiment_name="serve")
         with numerics_policy(cfg.compute_dtype, deterministic=True):
-            for name, ecfg in (("eager", cfg),
-                               ("cold", cfg.replace(aot_store_dir=store_a)),
-                               ("warm", cfg.replace(aot_store_dir=store_a))):
+            for name, ecfg in (("eager", cfg), ("cold", serve_cfg),
+                               ("warm", serve_cfg)):
                 bn_act.reset_launches()
                 eng = ServingEngine(ecfg, state, device="cuda")
                 try:
@@ -5407,7 +5550,15 @@ def warm_start(entry: dict, card: str) -> None:
                                    for e in execs],
                         "captured": [getattr(e.compiled, "launches", None)
                                      for e in execs
-                                     if getattr(e, "compiled", None)]}
+                                     if getattr(e, "compiled", None)],
+                        "counted": [e.compiled.costs is not None
+                                    for e in execs
+                                    if getattr(e, "compiled", None)]}
+                    if name == "warm":
+                        serve_fp = eng._aot_store.fingerprint
+                        serve_doc = profiler.load_profile(
+                            eng._aot_store.profile_path())
+                        copied = eng.write_profile_json()
                 finally:
                     eng.close()
         entry["launches"] += sum(counts[k]["launches"] for k in counts)
@@ -5428,6 +5579,28 @@ def warm_start(entry: dict, card: str) -> None:
                 or sorted(a["warm"]["captured"]) != [4, 20]):
             failures.append(f"(a) serving: bitwise {bitwise}, "
                             f"{json.dumps(counts)}")
+        # The cost database: the cold engine counted every extent's
+        # card, the warm one none; the engine copies them to its logs.
+        extents = sorted({aot.serve_adapt_name(sb)
+                          for sb, _ in cfg.serve_bucket_shapes}
+                         | {aot.serve_predict_name(qb)
+                            for _, qb in cfg.serve_bucket_shapes})
+        serve_cards = (serve_doc or {}).get("cards") or {}
+        copied_doc = profiler.load_profile(copied) if copied else None
+        for n in extents:
+            print(f"warm start (a) cost card {n}: "
+                  f"{_card_text(serve_cards[n]) if n in serve_cards else None}"
+                  f" ({card})", flush=True)
+            failures += [f"(a) {f}" for f in _card_faults(
+                n, serve_cards.get(n), serve_fp)]
+        if (not all(a["cold"]["counted"]) or any(a["warm"]["counted"])
+                or sorted(serve_cards) != extents or copied_doc is None
+                or copied_doc["cards"] != serve_cards):
+            failures.append(f"(a) cost cards: counted cold "
+                            f"{a['cold']['counted']}, warm "
+                            f"{a['warm']['counted']}; store cards "
+                            f"{sorted(serve_cards)} of {extents}; copied to "
+                            f"{copied}")
         seconds["a"] = round(time.perf_counter() - t1, 1)
 
         # (b) training: the phase keys' graphs against the eager steps.
@@ -5450,6 +5623,21 @@ def warm_start(entry: dict, card: str) -> None:
             for e, _ in WARM_STEPS}
         chains, times = {}, {"eager": {}, "graph": {}}
         graphs = {}
+        # The graphs come through the adoption primitive on a fresh
+        # store, which counts each capture's warm-up into its cost card.
+        reg_b = MetricsRegistry()
+        store_b = aot.AOTStore.from_config(
+            cfg.replace(aot_store_dir=os.path.join(tmp, "train_store")),
+            "cuda", registry=reg_b)
+
+        def adopt(name, capture, sig, fallback):
+            fn_, _ = aot.load_or_compile(store_b, name, capture, sig,
+                                         registry=reg_b, fallback=fallback)
+            if getattr(fn_, "compiled", None) is None:
+                raise AssertionError(f"warm start (b): the capture of "
+                                     f"{name} failed")
+            return fn_.compiled
+
         with numerics_policy(cfg.compute_dtype, deterministic=True):
             bn_act.reset_launches()
             for mode in ("eager", "graph"):
@@ -5459,10 +5647,13 @@ def warm_start(entry: dict, card: str) -> None:
                     fn = train_step
                     if mode == "graph":
                         if key not in graphs:
-                            graphs[key] = aot.TrainGraph(
-                                cfg, train_step, key, st,
-                                aot.zero_episode(cfg, cfg.batch_size,
-                                                 "cuda"), epoch)
+                            zero = aot.zero_episode(cfg, cfg.batch_size,
+                                                    "cuda")
+                            graphs[key] = adopt(
+                                aot.train_exec_name(key),
+                                lambda: aot.TrainGraph(cfg, train_step, key,
+                                                       st, zero, epoch),
+                                aot.signature_of(st, zero), train_step)
                         fn = graphs[key]
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -5474,8 +5665,11 @@ def warm_start(entry: dict, card: str) -> None:
                     metrics.append((m.loss, m.accuracy, m.support_loss,
                                     m.learning_rate))
                 chains[mode] = (st, metrics)
-            eval_graph = aot.EvalGraph(eval_step, chains["eager"][0],
-                                       eval_batch)
+            eval_graph = adopt(
+                "eval", lambda: aot.EvalGraph(eval_step, chains["eager"][0],
+                                              eval_batch),
+                aot.EvalGraph.signature(chains["eager"][0], eval_batch),
+                eval_step)
             res_e = eval_step(chains["eager"][0], eval_batch)
             res_g = eval_graph(chains["eager"][0], eval_batch)
             torch.cuda.synchronize()
@@ -5538,7 +5732,38 @@ def warm_start(entry: dict, card: str) -> None:
             failures.append(f"(b) eval differing {e_diff}, launches "
                             f"{train_launches} vs {derived}, counters "
                             f"{counters}")
-        del graphs, eval_graph, chains
+        # The store's cards: one per phase key and the eval step, each
+        # counted on its capture's warm-up (its wall inside
+        # aot/compile_seconds, beside an eager step of the key).
+        cards_b = {n: store_b.cost_card(n) for n in sorted(
+            [aot.train_exec_name(k_) for k_ in graphs] + ["eval"])}
+        for n, c in cards_b.items():
+            failures += [f"(b) {f}" for f in _card_faults(
+                n, c, store_b.fingerprint)]
+        warmups_s = {aot.train_exec_name(k_): round(
+            g.exec.warmup_seconds, 3) for k_, g in graphs.items()}
+        warmups_s["eval"] = round(eval_graph.exec.warmup_seconds, 3)
+        flagship = cards_b.get(aot.train_exec_name(key41))
+        bw = _bandwidth(torch.cuda.get_device_name())
+        if flagship is not None:
+            rate = flagship["bytes_accessed"] / (prof_g["device_ms"] / 1e3)
+            print(f"warm start (b) cost card {aot.train_exec_name(key41)} "
+                  f"(the flagship's second-order step): "
+                  f"{_card_text(flagship)}; its counted bytes over the "
+                  f"profiled replay's device time {rate / 1e12:.3f} TB/s "
+                  f"beside {bw / 1e12:.2f} TB/s ({card})", flush=True)
+        for n, c in cards_b.items():
+            if c is not None:
+                print(f"warm start (b) cost card {n}: {_card_text(c)}; "
+                      f"{c.get('flops_source')} ({card})", flush=True)
+        print(f"warm start (b) counted warm-ups (s) {json.dumps(warmups_s)}"
+              f" beside eager step ms {json.dumps(times['eager'])}; "
+              f"aot/compile_seconds "
+              f"{reg_b.counter(aot.COMPILE_SECONDS).value:.3f} over "
+              f"{len(cards_b)} captures, perf/errors "
+              f"{reg_b.counter(profiler.ERRORS_COUNTER).value} ({card})",
+              flush=True)
+        del graphs, eval_graph, chains, store_b
         torch.cuda.empty_cache()
         seconds["b"] = round(time.perf_counter() - t1, 1)
 
@@ -5573,6 +5798,7 @@ def warm_start(entry: dict, card: str) -> None:
             failures.append(f"(c) cold CLI: exit {coldp.returncode}, row "
                             f"{json.dumps(crow)}; stderr "
                             f"{coldp.stderr[-2000:]}")
+        failures += _warm_cost_cards(leg_out, runs, pre, card)
         seconds["c"] = round(time.perf_counter() - t1, 1)
     finally:
         for proc in children:

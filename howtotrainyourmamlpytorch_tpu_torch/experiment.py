@@ -38,7 +38,10 @@ training-health rows (``health_metrics_every_n_steps``, at dispatch-sync
 points); the perf sampler (``profile_every_n_steps``: ``perf_profile``
 rows, ``logs/PROFILE.json``); a device trace of epoch ``profile_epoch``
 (``profile_dir``); TensorBoard scalars (``use_tensorboard``). Off, each
-costs one ``None`` check where it would act.
+costs one ``None`` check where it would act. ``logs/PROFILE.json`` holds
+the run's cost cards (the warm-start store's, one per captured
+executable, and the sampler's) whenever the sampler or the store is on;
+it is written after the store's adoption and again at the run's end.
 
 Resilience (``resilience/``), at the JAX package's loop points:
 
@@ -536,7 +539,7 @@ class ExperimentBuilder:
                         with watchdog.phase("compile",
                                             detail=str(phase_key)):
                             self.state, metrics = self._first_step(
-                                step, card_name)
+                                step, card_name, batch)
                     else:
                         self.state, metrics = step()
                 except BaseException:
@@ -683,15 +686,38 @@ class ExperimentBuilder:
         return fn(state, batch, epoch, second_order=second_order,
                   use_msl=use_msl, plain=plain, health=health)
 
-    def _first_step(self, step, card_name: str):
-        """A step variant's first call; with the perf sampler on it counts
-        the variant's FLOPs into its cost card."""
-        if self._perf is None:
+    def _first_step(self, step, card_name: str, batch):
+        """A step variant's first call. With the perf sampler on and no
+        card of the variant registered (the store's, when it captured
+        one), it counts the variant's FLOPs, bytes accessed and memory
+        into its cost card: arguments (state and batch) and outputs by
+        their tensors; on the card the temporaries too, the step's peak
+        allocation above what was allocated before it
+        (``max_memory_allocated`` after ``reset_peak_memory_stats``) less
+        its outputs. On the CPU the temporaries are not measured: the
+        card's memory holds the argument and output sizes only."""
+        perf = self._perf
+        if perf is None or card_name in perf.cards:
             return step()
-        result, flops = profiler_mod.count_flops(step)
-        self._perf.register_card(card_name, profiler_mod.build_cost_card(
-            card_name, flops=flops, kind=self._perf.kind,
-            peaks=self._perf.peaks))
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            before = torch.cuda.memory_allocated(self.device)
+        result, costs = profiler_mod.counted(step)
+        out = profiler_mod.tree_bytes(result)
+        temp = None
+        if on_card:
+            torch.cuda.synchronize(self.device)
+            temp = max(torch.cuda.max_memory_allocated(self.device)
+                       - before - out, 0)
+        card = profiler_mod.card_from_costs(
+            card_name, costs, kind=perf.kind, peaks=perf.peaks,
+            memory=profiler_mod.memory_stats(
+                profiler_mod.tree_bytes((self.state, batch)), out, temp))
+        if "count_error" in card:
+            perf._count_error(RuntimeError(card["count_error"]))
+        perf.register_card(card_name, card)
         return result
 
     def _observe_health(self, health: Dict[str, torch.Tensor], epoch: int,
@@ -903,6 +929,8 @@ class ExperimentBuilder:
                                  options=cfg.xla_compiler_options_dict):
                 # Captures run under the policy the steps run under.
                 self._adopt_aot_plan()
+                if self._perf is not None or self._aot_store is not None:
+                    self._write_profile_json()
                 result = self._run_experiment()
             if (self._flightrec is not None
                     and "preempted_at_iter" in result):
@@ -942,9 +970,11 @@ class ExperimentBuilder:
                 cluster.install(prev_cluster)
                 self._cluster = None
                 self._elastic = None
+            # Refresh logs/PROFILE.json with the cards of phase keys
+            # captured or counted since the start.
+            if self._perf is not None or self._aot_store is not None:
+                self._write_profile_json()
             if self._perf is not None:
-                if self.is_main_process:
-                    self._write_profile_json()
                 flightrec.register_profile(prev_profile)
             if wd_enabled:
                 watchdog.install_beacon(prev_beacon)
@@ -1053,6 +1083,8 @@ class ExperimentBuilder:
                 self._aot_store, aot.train_exec_name(key), capture, sig,
                 registry=self.registry, fallback=self._plan.train_step,
                 count_load=False)
+        if self._perf is not None:
+            self._write_profile_json()   # the sampler gets its card
 
     def _note_first_dispatch(self) -> None:
         """One ``warm_start`` row per session, after its first train step
@@ -1138,14 +1170,35 @@ class ExperimentBuilder:
         return prev
 
     def _write_profile_json(self) -> None:
-        """Persist the phase cost cards as ``logs/PROFILE.json`` (the JAX
-        package's schema). Best-effort: observability only."""
+        """The run's cost cards as ``logs/PROFILE.json`` (the JAX
+        package's schema): the sampler's cards, and the warm-start
+        store's (its PROFILE.json: one card per captured executable),
+        which win by name and are registered with the sampler. The main
+        process writes. Best-effort: observability only."""
         try:
-            profiler_mod.merge_profile(
-                os.path.join(self.paths["logs"], profiler_mod.PROFILE_FILE),
-                list(self._perf.cards.values()),
-                device_kind=self._perf.kind, peaks=self._perf.peaks)
-        except OSError as e:
+            cards: Dict[str, Any] = {}
+            kind = profiler_mod.device_kind(self.device)
+            peaks = None
+            fingerprint = None
+            if self._perf is not None:
+                cards.update(self._perf.cards)
+                kind, peaks = self._perf.kind, self._perf.peaks
+            if self._aot_store is not None:
+                doc = profiler_mod.load_profile(
+                    self._aot_store.profile_path())
+                if doc:
+                    cards.update(doc["cards"])
+                    if self._perf is not None:
+                        for name, card in doc["cards"].items():
+                            self._perf.register_card(name, card)
+                fingerprint = self._aot_store.fingerprint
+            if self.is_main_process:
+                profiler_mod.merge_profile(
+                    os.path.join(self.paths["logs"],
+                                 profiler_mod.PROFILE_FILE),
+                    list(cards.values()), device_kind=kind, peaks=peaks,
+                    fingerprint=fingerprint)
+        except Exception as e:  # noqa: BLE001 — observability only
             logging.getLogger(__name__).warning(
                 "PROFILE.json write failed (%s: %s)", type(e).__name__, e)
 

@@ -30,13 +30,18 @@ runs the kernel. A call made while the current stream is being captured
 into a CUDA graph (``parallel/aot.py``) runs nothing: it adds to
 ``captured`` instead, the graph keeps how many it captured, and each
 replay adds that many to ``launches`` (:func:`count_replay`).
+
+A byte counter (``telemetry/profiler.py § count_costs``) sees the torch
+ops around the kernel, never the ctypes launch: each launch that runs
+reports :func:`bn_act_bytes` to the callables in ``byte_sinks`` (the
+module imports no telemetry; the counter registers itself there).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -49,6 +54,8 @@ launches = 0
 # Launches recorded into CUDA graphs under capture (never reset: a
 # capture reads its own difference).
 captured = 0
+# Callables taking the bytes of each launch that runs (not captured).
+byte_sinks: List[Callable[[int], None]] = []
 
 # The sum order (csrc/bn_act.cu): chunks of max(256, ceil(R/65535)) rows,
 # each column's chunk summed in 8 row lanes. Shared memory of a block: 16
@@ -71,6 +78,13 @@ def count_replay(n: int) -> None:
     """A replay of a CUDA graph that captured ``n`` launches ran them."""
     global launches
     launches += n
+
+
+def bn_act_bytes(rows: int, cols: int, itemsize: int) -> int:
+    """Bytes one launch on an ``(rows, cols)`` matrix of ``itemsize``-byte
+    elements must move, each once: operands x, gamma, beta (f32) and
+    results y, mean, var (f32)."""
+    return 2 * rows * cols * itemsize + 4 * cols * 4
 
 
 def _act(y: torch.Tensor, slope: float) -> torch.Tensor:
@@ -189,6 +203,8 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         captured += 1
     else:
         launches += 1
+        for sink in byte_sinks:
+            sink(bn_act_bytes(r, p, x.element_size()))
     return y, scratch[:p], scratch[p:2 * p]
 
 

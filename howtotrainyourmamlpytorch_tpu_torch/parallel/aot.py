@@ -12,6 +12,14 @@ A graph cannot be written to disk, so the store keeps what rebuilds it:
 the executable's name, its input signature (shapes and dtypes), the
 BN-kernel launches it captured and the capture's seconds.
 
+The store is also the port's cost database (the JAX module's): every
+capture whose card the store lacks counts its eager warm-up
+(``telemetry/profiler.py § count_costs``) and records the executable's
+cost card (FLOPs, bytes accessed, the graph's memory, the roofline
+verdict) in the fingerprint directory's ``PROFILE.json``
+(:meth:`AOTStore.record_cost_card`); a capture from a record whose card
+is there counts nothing.
+
 * A **hit** is a committed record of this fingerprint whose signature
   is the caller's: the executable is captured before the first step or
   request, off the request path (the trainer's and the engine's
@@ -28,6 +36,7 @@ GC of wreckage)::
         train_so0_msl1.graph.json
         eval.graph.json
         serve_adapt_s25.graph.json ...
+        PROFILE.json        # cost cards by executable name
 
 Nothing in this module is fatal: a foreign fingerprint, a corrupt record
 (quarantined as ``*.corrupt``), an unwritable root or a capture that
@@ -47,6 +56,7 @@ captures), ``aot/errors``, ``aot/quarantined``, ``aot/gc_deletes`` and
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import hashlib
 import json
@@ -64,6 +74,7 @@ from howtotrainyourmamlpytorch_tpu_torch.ckpt.manifest import (
     Manifest, atomic_write_json, file_crc32)
 from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
 from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
 
 log = logging.getLogger(__name__)
 
@@ -141,6 +152,12 @@ _RUNTIME_ONLY_KEYS = frozenset({
     "compilation_cache_dir", "aot_store_dir", "prefetch_batches",
     "cache_eval_episodes", "precompile_phases", "ignored_keys",
 })
+
+
+# Set by load_or_compile around a capture whose cost card the store
+# lacks: the GraphExec built inside counts its eager warm-up.
+_COUNT_CAPTURE: contextvars.ContextVar = contextvars.ContextVar(
+    "aot_count_capture", default=False)
 
 
 def enabled(cfg: MAMLConfig) -> bool:
@@ -304,6 +321,20 @@ def signature_of(*args: Any) -> List[List[Any]]:
 # ---------------------------------------------------------------------------
 
 
+def graph_memory(static: Sequence[torch.Tensor],
+                 outputs: Sequence[torch.Tensor], carry: Dict[int, int],
+                 pool_bytes: int) -> Dict[str, int]:
+    """A captured executable's ``memory`` (:class:`GraphExec`): static
+    inputs, outputs, the outputs that are static inputs (``carry``: output
+    index -> input index) and the pool's growth less the outputs it
+    holds."""
+    out_bytes = profiler.tree_bytes(list(outputs))
+    alias = profiler.tree_bytes([outputs[j] for j in carry])
+    return profiler.memory_stats(
+        argument=profiler.tree_bytes(list(static)), output=out_bytes,
+        temp=max(int(pool_bytes) - (out_bytes - alias), 0), alias=alias)
+
+
 class GraphExec:
     """One call of ``fn(*args, **kwargs)`` captured into CUDA graphs.
 
@@ -324,6 +355,19 @@ class GraphExec:
     fail the capture; the stages' graphs share one memory pool.
     ``launches``: the BN-kernel launches captured, ``stage_launches``
     per stage.
+
+    Inside :func:`load_or_compile`'s request to count (the store lacks
+    this executable's card), the warm-up runs under
+    ``telemetry/profiler.py § count_costs``: ``costs`` then holds its
+    FLOPs and bytes accessed, every stage summed (the ``between``
+    collective runs in no stage and is not counted), and the graph's
+    ``memory``, else ``costs`` is None. Nothing is counted under stream
+    capture, and counting takes no extra run. ``memory`` (always): the
+    static input buffers (argument), the outputs (output; those that are
+    static inputs also as alias), and the graphs' pool, what
+    ``torch.cuda.memory_reserved`` gains over the captures from the
+    allocator's cache emptied, less the outputs it holds (temp);
+    ``peak_bytes`` is their sum, as the JAX package defines it.
 
     A call checks that its arguments have the captured tensor structure,
     shapes, dtypes and device (else ``TypeError``, before any buffer is
@@ -358,17 +402,31 @@ class GraphExec:
                 return stages[0](*static_args, **kwargs)
             return stages[i](*static_args, prev)
 
+        def warm_up():
+            out = None
+            for i in range(len(stages)):
+                out = run(i, out)
+            return out
+
         self.warmups = 1
+        self.costs: Optional[Dict[str, Any]] = None
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            out = None
-            for i in range(len(stages)):
-                out = run(i, out)
+            if _COUNT_CAPTURE.get():
+                self.costs = profiler.counted(warm_up)[1]
+            else:
+                warm_up()
         current.wait_stream(side)
         torch.cuda.synchronize(self.device)
+        self.warmup_seconds = time.perf_counter() - t0
+        # A capture begins by releasing the allocator's cached blocks
+        # (torch.cuda.graph): release them first, so that what the
+        # reserved bytes gain over the captures is the graphs' pool.
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
         self.graphs: List[torch.cuda.CUDAGraph] = []
         self.stage_launches: List[int] = []
         # Stage i's output, which stage i+1's graph reads in place.
@@ -385,6 +443,7 @@ class GraphExec:
             self.stage_launches.append(bn_act.captured - before)
             self._stage_out.append(out)
         torch.cuda.synchronize(self.device)
+        pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = self.graphs[0]
         self.launches = sum(self.stage_launches)
         self.capture_seconds = time.perf_counter() - t0
@@ -392,6 +451,10 @@ class GraphExec:
         ids = {id(t): i for i, t in enumerate(self.static)}
         self._carry = {j: ids[id(t)] for j, t in enumerate(self._outputs)
                        if id(t) in ids}
+        self.memory = graph_memory(self.static, self._outputs, self._carry,
+                                   pool_bytes)
+        if self.costs is not None:
+            self.costs["memory"] = self.memory
         self._given: Dict[int, torch.Tensor] = {}
         self.replays = 0
 
@@ -713,6 +776,45 @@ class AOTStore:
             return False
 
 
+    # -- the cost database ------------------------------------------------
+    def profile_path(self) -> str:
+        """This fingerprint directory's PROFILE.json (may not exist)."""
+        return os.path.join(self.dir, profiler.PROFILE_FILE)
+
+    def cost_card(self, name: str) -> Optional[Dict[str, Any]]:
+        """Executable ``name``'s recorded cost card, or None."""
+        doc = profiler.load_profile(self.profile_path())
+        return None if doc is None else doc["cards"].get(name)
+
+    def records_cards(self) -> bool:
+        """Whether :meth:`record_cost_card` writes (the writer only)."""
+        return self.writable and self._writer_requested
+
+    def record_cost_card(self, name: str, card: Dict[str, Any],
+                         only_if_missing: bool = False) -> bool:
+        """Merge executable ``name``'s cost card into this fingerprint
+        directory's PROFILE.json (``profiler.merge_profile``), stamped
+        with the store's ``fingerprint[:16]``. Writer only (``writer=
+        False`` records nothing), best-effort: a card is observability,
+        never worth failing a capture over. ``only_if_missing`` keeps a
+        card already there."""
+        if not self.records_cards():
+            return False
+        try:
+            if only_if_missing and self.cost_card(name) is not None:
+                return True
+            card = {**card, "name": name,
+                    "fingerprint": self.fingerprint[:16]}
+            profiler.merge_profile(self.profile_path(), [card],
+                                   device_kind=card.get("device_kind", ""),
+                                   fingerprint=self.fingerprint)
+            return True
+        except Exception as e:  # noqa: BLE001 — observability only
+            log.warning("cost card for %r not recorded (%s: %s)", name,
+                        type(e).__name__, e)
+            return False
+
+
 class GuardedExec:
     """An executable with a one-way escape to the eager step.
 
@@ -783,13 +885,20 @@ def load_or_compile(store: Optional[AOTStore], name: str,
     False (the caller captures at first use), and records it. The
     callable is a :class:`GuardedExec` over ``fallback`` (the eager
     step). ``store=None`` returns ``fallback``. A capture that fails is
-    a counted error and leaves the eager step."""
+    a counted error and leaves the eager step.
+
+    Every capture on a miss, and a capture on a hit whose cost card the
+    store lacks, counts its warm-up and records the executable's card
+    (:func:`record_capture_card`); a writer-less store counts nothing."""
     if store is None:
         return fallback, False
     hit = probe(store, name, sig, count=count_load)
     if not hit and not compile_on_miss:
         return fallback, False
+    want_card = store.records_cards() and (
+        not hit or store.cost_card(name) is None)
     t0 = time.perf_counter()
+    token = _COUNT_CAPTURE.set(want_card)
     try:
         compiled = capture()
     except Exception as e:  # noqa: BLE001 — the eager step stays right
@@ -797,7 +906,11 @@ def load_or_compile(store: Optional[AOTStore], name: str,
         log.warning("AOT capture of %r failed (%s: %s); eager step",
                     name, type(e).__name__, e)
         return fallback, False
+    finally:
+        _COUNT_CAPTURE.reset(token)
     store._count(COMPILE_SECONDS, time.perf_counter() - t0)
+    if want_card:
+        record_capture_card(store, name, compiled)
     fresh = {**compiled.record(), "signature": sig}
     if hit:
         record = store.load(name, count=False) or {}
@@ -813,6 +926,23 @@ def load_or_compile(store: Optional[AOTStore], name: str,
     elif save:
         store.save(name, fresh)
     return GuardedExec(compiled, fallback, name, registry), hit
+
+
+def record_capture_card(store: AOTStore, name: str, compiled) -> bool:
+    """Record the cost card of a capture that counted its warm-up
+    (``compiled.costs``; an executable without one records nothing). A
+    count that failed records ``flops_source`` ``"unavailable"`` and adds
+    one to ``perf/errors``."""
+    costs = getattr(compiled, "costs", None)
+    if costs is None:
+        return False
+    kind = profiler.device_kind(getattr(compiled, "device", None))
+    card = profiler.card_from_costs(name, costs, kind=kind,
+                                    peaks=profiler.resolve_peaks(kind),
+                                    memory=costs.get("memory"))
+    if "count_error" in card:
+        store._count(profiler.ERRORS_COUNTER)
+    return store.record_cost_card(name, card)
 
 
 # ---------------------------------------------------------------------------
@@ -865,7 +995,8 @@ class TrainGraph:
     clones of them with the counters of the step (``opt_state.count``,
     ``step``) and the meta-LR of ``state.step`` set on the host, as the
     eager step sets them. A step with ``health`` or ``plain`` runs the
-    eager step."""
+    eager step. Its one cost card (``costs``) sums both graphs' warm-up;
+    the all-reduce between them is not counted."""
 
     def __init__(self, cfg: MAMLConfig, train_step: Callable,
                  phase_key: Tuple[bool, bool], state, batch, epoch: int):
@@ -901,6 +1032,7 @@ class TrainGraph:
         self.exec = GraphExec(train_exec_name(phase_key), (local, update),
                               (state, batch), between=pieces.reduce)
         self.launches = self.exec.launches
+        self.costs, self.device = self.exec.costs, self.exec.device
 
     def record(self) -> Dict[str, Any]:
         return self.exec.record()
@@ -934,7 +1066,9 @@ class EvalGraph:
     then the step's one all-gather run eagerly on the replay's outputs
     (``EvalPieces.gather``; nothing without a process group). Called
     like the eager step (``plain`` runs the eager one); ``eval_step`` is
-    a step of ``meta/outer.py § make_eval_step`` (its ``pieces``)."""
+    a step of ``meta/outer.py § make_eval_step`` (its ``pieces``). Its
+    cost card (``costs``) counts the local graph's warm-up, not the
+    all-gather."""
 
     @staticmethod
     def signature(state, batch) -> List[List[Any]]:
@@ -956,6 +1090,7 @@ class EvalGraph:
         self.exec = GraphExec("eval", body, (state.params, state.lslr,
                                              state.bn_state, batch))
         self.launches = self.exec.launches
+        self.costs, self.device = self.exec.costs, self.exec.device
 
     def record(self) -> Dict[str, Any]:
         return self.exec.record()

@@ -935,10 +935,28 @@ class ServingEngine:
 
     def write_profile_json(self, path: Optional[str] = None
                            ) -> Optional[str]:
-        """None: the JAX engine copies cost cards from its AOT store,
-        which the port does not have (as the JAX engine with the store
-        off)."""
-        return None
+        """Copy the warm-start store's cost cards (``parallel/aot.py §
+        AOTStore.record_cost_card``: one per adapt and predict extent
+        captured) next to the serve logs, default
+        ``<experiment_root>/<name>/logs/PROFILE.json``, as the JAX engine
+        does. Returns the written path, or None when the store is off or
+        holds no cards yet."""
+        if self._aot_store is None:
+            return None
+        from howtotrainyourmamlpytorch_tpu_torch.telemetry import (
+            profiler as profiler_mod)
+        doc = profiler_mod.load_profile(self._aot_store.profile_path())
+        if doc is None or not doc["cards"]:
+            return None
+        if path is None:
+            path = os.path.join(self.cfg.experiment_root,
+                                self.cfg.experiment_name, "logs",
+                                profiler_mod.PROFILE_FILE)
+        profiler_mod.merge_profile(
+            path, list(doc["cards"].values()),
+            device_kind=doc.get("device_kind", ""),
+            fingerprint=self._aot_store.fingerprint)
+        return path
 
     def _mirror_cache_counters(self) -> None:
         """LRU and assembler tallies -> registry counters (delta-mirrored)

@@ -19,16 +19,24 @@ counterpart of the JAX package's ``telemetry/profiler.py``).
   in the window to :data:`UNATTRIBUTED`.
   Each sample publishes ``perf/*`` gauges and counters and one
   ``perf_profile`` events.jsonl row with the JAX package's keys.
-* **Cost cards** — the FLOPs of one train step per phase key
-  (``train_so{0,1}_msl{0,1}``), counted by
-  ``torch.utils.flop_counter.FlopCounterMode`` (convolutions and matrix
-  products, forward and backward) during a real step of that phase
-  outside the sampled window: the mode passes every op through
-  unchanged, so the step's weights are bitwise those of an uncounted
-  step. MFU is the card's FLOPs over the window's wall time and the
-  card's peak (:data:`DEVICE_PEAKS`). The cards persist as
-  ``logs/PROFILE.json`` in the JAX package's schema; eager PyTorch
-  reports no bytes accessed, so the roofline verdict reads "unknown".
+* **Cost cards** — the FLOPs, bytes accessed and memory of one
+  executable, in the JAX package's card keys (:func:`build_cost_card`),
+  with its arithmetic intensity and roofline verdict against the card's
+  peaks (:data:`DEVICE_PEAKS`). :func:`count_costs` counts a real run of
+  the step under one dispatch mode (:class:`CostCounter`): FLOPs by
+  ``torch.utils.flop_counter``'s formulas (convolutions and matrix
+  products, forward and backward, as ``FlopCounterMode`` counts them)
+  and bytes by XLA's definition per op (its class docstring). The mode
+  passes every op through unchanged, so a counted step's weights are
+  bitwise those of an uncounted step. The warm-start
+  store counts each executable once, on its capture's eager warm-up, and
+  keeps the card in its ``PROFILE.json`` (``parallel/aot.py §
+  AOTStore.record_cost_card``); the trainer counts a phase's first eager
+  step when the sampler has no card for it. MFU is the card's FLOPs over
+  the window's wall time and the peak; each window's roofline entry
+  carries the card's ceiling and the fraction of it achieved
+  (:func:`attach_card`). The cards persist as ``logs/PROFILE.json`` in
+  the JAX package's schema.
 
 On the CPU (the tests) there is no device lane: the outermost CPU
 operators of the window stand for the device's work, and the row says so
@@ -48,6 +56,7 @@ import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 PROFILE_SCHEMA = "maml_perf_profile_v1"
 PROFILE_FILE = "PROFILE.json"
@@ -222,15 +231,218 @@ def count_flops(fn: Callable[[], Any]) -> Tuple[Any, float]:
     return out, float(mode.get_total_flops())
 
 
-def build_cost_card(name: str, *, flops: float, kind: str,
-                    peaks: Dict[str, Any]) -> Dict[str, Any]:
-    """One cost card in the JAX package's card keys (bytes accessed and
-    compiled memory unknown to eager PyTorch: 0.0 and None)."""
-    return {"name": name, "fingerprint": None, "device_kind": kind,
-            "flops": float(flops), "flops_source": "flop_counter_mode",
-            "bytes_accessed": 0.0, "memory": None,
-            **roofline_verdict(float(flops), 0.0, peaks["peak_flops"],
+# Ops that allocate and read or write nothing.
+_ALLOCATION_ONLY = frozenset({"empty", "empty_strided", "empty_like",
+                              "new_empty", "new_empty_strided"})
+# An op's kind for the byte rule, by op: "alloc", "view", "write" (it
+# writes an operand), "like" (reads its operand's shape only) or "op".
+_KINDS: Dict[Any, str] = {}
+
+
+def _kind(func) -> str:
+    kind = _KINDS.get(func)
+    if kind is None:
+        name = func._opname
+        kind = ("alloc" if name in _ALLOCATION_ONLY
+                else "view" if func.is_view
+                else "write" if any(
+                    a.alias_info is not None and a.alias_info.is_write
+                    for a in func._schema.arguments)
+                else "like" if name.endswith("_like") else "op")
+        _KINDS[func] = kind
+    return kind
+
+
+def _tensors(obj: Any, acc: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The tensors of an op's arguments or results (nested sequences and
+    dicts), in order."""
+    if isinstance(obj, torch.Tensor):
+        acc.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            _tensors(o, acc)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            _tensors(o, acc)
+    return acc
+
+
+def tensor_bytes(t: torch.Tensor) -> int:
+    """Bytes of the distinct elements ``t`` addresses: a broadcast
+    dimension (stride 0) holds one element."""
+    if t.numel() == 0:
+        return 0
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def op_bytes(func, args, kwargs, out) -> int:
+    """One op's bytes accessed (:class:`CostCounter`'s rule)."""
+    kind = _kind(func)
+    if kind in ("alloc", "view"):
+        return 0
+    ins = _tensors(kwargs, _tensors(args, []))
+    outs = _tensors(out, [])
+    held = {t.data_ptr() for t in ins}
+    fresh = [t for t in outs if t.data_ptr() not in held]
+    if outs and not fresh and kind != "write":
+        return 0   # every result is an operand's memory (_unsafe_view)
+    seen: set = set()
+    total = 0
+    for t in ([] if kind == "like" else ins) + fresh:
+        if id(t) not in seen:
+            seen.add(id(t))
+            total += tensor_bytes(t)
+    return total
+
+
+class CostCounter(TorchDispatchMode):
+    """FLOPs and bytes accessed of the ops run under it, in one pass.
+
+    FLOPs are ``torch.utils.flop_counter``'s: its formula for each op it
+    has one for (convolutions and matrix products, forward and
+    backward), as ``FlopCounterMode`` counts them. One mode does both
+    counts: ``FlopCounterMode`` nested with a second dispatch mode would
+    take each op through Python twice.
+
+    Bytes are XLA's definition: for every op, the bytes of its tensor
+    operands plus its tensor results, each distinct tensor counted once
+    (a result that is an operand, the return of an in-place op, is that
+    operand). Two kinds of op count 0: ops whose results alias an
+    operand and that write none (views, ``detach``, ``_unsafe_view``),
+    and allocation-only ops (``empty``, ``empty_strided``,
+    ``empty_like``). A ``*_like`` op counts its results only. A tensor's
+    bytes are those of the distinct elements it addresses
+    (:func:`tensor_bytes`). The count is per op, as eager PyTorch runs
+    them: a tensor that stays in the card's L2 between two ops counts as
+    memory traffic at each.
+
+    Every op passes through unchanged. Work the dispatcher does not see,
+    the BN kernel launched through ctypes, is reported by its wrapper
+    (``ops/bn_act.py § byte_sinks``) and added by :meth:`add` while this
+    mode is active on the reporting thread (an autograd worker included:
+    it inherits the caller's modes)."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+        self._flop_formulas = flop_registry
+        self.flops = 0
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        formula = self._flop_formulas.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
+        self.bytes += op_bytes(func, args, kwargs, out)
+        return out
+
+    def add(self, nbytes: int) -> None:
+        from torch.utils._python_dispatch import (
+            _get_current_dispatch_mode_stack)
+        if any(m is self for m in _get_current_dispatch_mode_stack()):
+            self.bytes += int(nbytes)
+
+
+def count_costs(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, float]]:
+    """``(fn(), {"flops", "bytes_accessed"})``: one run of ``fn`` under
+    :class:`CostCounter` (second-order ``autograd.grad`` included: its
+    backward ops pass through it). Every op passes through unchanged."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import bn_act
+    counter = CostCounter()
+    bn_act.byte_sinks.append(counter.add)
+    try:
+        with counter:
+            out = fn()
+    finally:
+        bn_act.byte_sinks.remove(counter.add)
+    return out, {"flops": float(counter.flops),
+                 "bytes_accessed": float(counter.bytes)}
+
+
+def counted(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, Any]]:
+    """:func:`count_costs` with ``flops_source`` ``"flop_counter_mode"``.
+    A count that fails runs ``fn`` again uncounted (a step is
+    functional: the rerun gives the same result; a step that fails
+    uncounted raises) and reads ``flops_source`` ``"unavailable"``, 0
+    FLOPs and bytes, and the ``error``."""
+    try:
+        out, costs = count_costs(fn)
+        costs["flops_source"] = "flop_counter_mode"
+    except Exception as e:  # noqa: BLE001 — the rerun below tells a
+        # failing step (it raises again) from a failing count.
+        out = fn()
+        costs = {"flops": 0.0, "bytes_accessed": 0.0,
+                 "flops_source": "unavailable",
+                 "error": f"{type(e).__name__}: {e}"}
+    return out, costs
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes of the distinct tensors of a tree (dicts, sequences,
+    NamedTuples, dataclasses), each counted once."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.aot import flatten
+    seen: set = set()
+    total = 0
+    for t in flatten(tree)[0]:
+        if id(t) not in seen:
+            seen.add(id(t))
+            total += t.numel() * t.element_size()
+    return total
+
+
+def memory_stats(argument: int, output: int,
+                 temp: Optional[int] = None, alias: Optional[int] = None
+                 ) -> Dict[str, int]:
+    """A card's ``memory`` in the JAX package's keys: ``peak_bytes`` is
+    argument + output + temp, as JAX defines it. ``temp`` None (not
+    measured) leaves it out of the dict and of the peak."""
+    out = {"argument_size_in_bytes": int(argument),
+           "output_size_in_bytes": int(output)}
+    if temp is not None:
+        out["temp_size_in_bytes"] = int(temp)
+    if alias is not None:
+        out["alias_size_in_bytes"] = int(alias)
+    out["peak_bytes"] = (out["argument_size_in_bytes"]
+                         + out["output_size_in_bytes"]
+                         + out.get("temp_size_in_bytes", 0))
+    return out
+
+
+def build_cost_card(name: str, *, flops: float, bytes_accessed: float,
+                    kind: str, peaks: Dict[str, Any],
+                    memory: Optional[Dict[str, int]] = None,
+                    fingerprint: Optional[str] = None,
+                    flops_source: str = "flop_counter_mode"
+                    ) -> Dict[str, Any]:
+    """One cost card in the JAX package's card keys, with the roofline
+    verdict of its FLOPs and bytes against ``peaks``."""
+    return {"name": name, "fingerprint": fingerprint, "device_kind": kind,
+            "flops": float(flops), "flops_source": flops_source,
+            "bytes_accessed": float(bytes_accessed), "memory": memory,
+            **roofline_verdict(float(flops), float(bytes_accessed),
+                               peaks["peak_flops"],
                                peaks["hbm_bytes_per_s"])}
+
+
+def card_from_costs(name: str, costs: Dict[str, Any], *, kind: str,
+                    peaks: Dict[str, Any],
+                    memory: Optional[Dict[str, int]] = None
+                    ) -> Dict[str, Any]:
+    """The cost card of one run counted by :func:`counted`; a count that
+    failed keeps its error as ``count_error``."""
+    card = build_cost_card(name, flops=costs["flops"],
+                           bytes_accessed=costs["bytes_accessed"], kind=kind,
+                           peaks=peaks, memory=memory,
+                           flops_source=costs["flops_source"])
+    if costs.get("error"):
+        card["count_error"] = costs["error"]
+    return card
 
 
 def load_profile(path: str) -> Optional[Dict[str, Any]]:
@@ -503,9 +715,11 @@ def attach_card(summary: Dict[str, Any], executable: Optional[str],
                 card: Optional[Dict[str, Any]],
                 peaks: Dict[str, Any]) -> Dict[str, Any]:
     """The JAX package's per-executable split (one executable per window:
-    the step of ``executable``'s phase), its roofline entry, and the
-    window's MFU: the card's FLOPs over the wall time and the peak (None
-    without a card or a peak)."""
+    the step of ``executable``'s phase), its roofline entry (the card's
+    FLOPs over the window's device compute seconds, with the card's
+    ceiling and the fraction of it achieved, as JAX's
+    ``attach_roofline``), and the window's MFU: the card's FLOPs over the
+    wall time and the peak (None without a card or a peak)."""
     secs = sum(summary["per_family_seconds"].values())
     summary["per_executable_seconds"] = ({executable: secs}
                                          if executable and secs > 0 else {})
@@ -520,9 +734,14 @@ def attach_card(summary: Dict[str, Any], executable: Optional[str],
     flops = float(card["flops"])
     summary["flops"] = flops
     if secs > 0:
-        summary["roofline"][executable] = {
-            "achieved_flops_per_s": flops / summary["device_compute_seconds"],
-            "bound": card.get("bound", "unknown")}
+        rate = flops / summary["device_compute_seconds"]
+        entry = {"achieved_flops_per_s": rate,
+                 "bound": card.get("bound", "unknown")}
+        ceiling = card.get("ceiling_flops_per_s")
+        if ceiling:
+            entry["ceiling_flops_per_s"] = ceiling
+            entry["frac_of_ceiling"] = rate / ceiling
+        summary["roofline"][executable] = entry
     if peaks["peak_flops"] > 0 and summary["wall_seconds"] > 0:
         summary["mfu"] = flops / summary["wall_seconds"] / peaks[
             "peak_flops"]

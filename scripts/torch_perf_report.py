@@ -8,22 +8,29 @@ Usage:
     python scripts/torch_perf_report.py <PROFILE.json | logs dir | experiment dir>
                                         [--events PATH] [--json]
 
-Reads the two artifacts the port's perf sampler
-(``profile_every_n_steps``) writes:
+Reads the two artifacts the port's trainer writes with its perf sampler
+(``profile_every_n_steps``) or its warm-start store (``aot_store_dir``)
+on:
 
-* ``PROFILE.json`` — one cost card per train phase
-  (``train_so{0,1}_msl{0,1}``): the FLOPs ``FlopCounterMode`` counted on
-  a real step, in the JAX package's schema;
+* ``PROFILE.json`` — one cost card per executable: each train phase
+  (``train_so{0,1}_msl{0,1}``), and with the warm-start store the eval
+  step and the serve adapt/predict extents. A card carries the FLOPs
+  ``FlopCounterMode`` counted and the bytes accessed a byte-counting
+  dispatch mode counted on a real step, the memory, the arithmetic
+  intensity and the compute-vs-memory verdict against the device's
+  peaks, in the JAX package's schema;
 * ``events.jsonl`` ``perf_profile`` rows — sampled device-time windows
-  (per-phase and per-region seconds, device-compute vs dispatch-gap).
+  (per-phase and per-region seconds, device-compute vs dispatch-gap,
+  achieved FLOP/s against the card's ceiling).
 
 and prints the executables ranked by measured device time (cards by
-FLOPs when the run never sampled), the window split and the regions.
+FLOPs when the run never sampled), each with its bound and the fraction
+of its ceiling achieved, the window split and the regions.
 
-The roofline verdict reads "unknown": eager PyTorch reports no bytes
-accessed, so the port's cards carry none (``bytes_accessed`` 0.0) and no
-arithmetic intensity or ceiling can be derived. The table says so; it
-never invents a number.
+A bound reads "unknown" for a card without bytes accessed (a
+``PROFILE.json`` written before the port counted them), or where no peak
+is known for the device (a CPU run without ``MAML_PEAK_FLOPS`` /
+``MAML_HBM_GBPS``). The table says which; it never invents a number.
 
 The LAST stdout line is the JSON artifact ``{"metric": "perf_report",
 ...}``. Exit 0 ok, 1 when neither a PROFILE.json nor any perf_profile
@@ -48,9 +55,11 @@ from howtotrainyourmamlpytorch_tpu_torch.utils import (  # noqa: E402
     tracing as _tracing)
 
 REPORT_SCHEMA = "maml_perf_report_v1"
-UNKNOWN_NOTE = ("bound 'unknown': the port's cost cards carry no bytes "
-                "accessed (eager PyTorch reports none), so there is no "
-                "roofline verdict")
+UNKNOWN_NOTE = ("bound 'unknown': a card without bytes accessed (written "
+                "before the port counted them) has no arithmetic "
+                "intensity, so there is no roofline verdict")
+NO_PEAKS_NOTE = ("bound 'unknown': no peak FLOP/s or HBM bandwidth is known "
+                 "for this device (set MAML_PEAK_FLOPS / MAML_HBM_GBPS)")
 
 
 def match_card(module: str, cards: Dict[str, Dict[str, Any]]
@@ -211,8 +220,12 @@ def format_report(report: Dict[str, Any]) -> str:
             lines.append(f"  {row['executable']:<28} {secs:>10} "
                          f"{share:>7} {str(row['bound'] or '-'):>8} "
                          f"{gflop:>10} {ceil:>7}")
-    if any(row.get("bound") == "unknown" for row in report["ranked"]):
+    unknown = [row for row in report["ranked"]
+               if row.get("bound") == "unknown"]
+    if any(row.get("arithmetic_intensity") is None for row in unknown):
         lines.append(f"  {UNKNOWN_NOTE}")
+    if any(row.get("arithmetic_intensity") is not None for row in unknown):
+        lines.append(f"  {NO_PEAKS_NOTE}")
     regions = report["per_region_seconds"]
     if regions:
         lines.append("  named regions (device s): " + ", ".join(

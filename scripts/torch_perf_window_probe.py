@@ -117,12 +117,12 @@ def main(argv=None) -> int:
             return builder.train_step(state, batch, epoch, **phase)
 
         step()
-        flops = profiler.count_flops(step)[1]
+        costs = profiler.count_costs(step)[1]
         windows = []
         for i in range(args.windows):
             sampler = profiler.PerfSampler(1, device="cuda")
             sampler.register_card(name, profiler.build_cost_card(
-                name, flops=flops, kind=sampler.kind, peaks=sampler.peaks))
+                name, **costs, kind=sampler.kind, peaks=sampler.peaks))
             if not sampler.start_window(i):
                 raise RuntimeError("the sampler did not start")
             before = bn_act.launches

@@ -254,6 +254,42 @@ def test_kernel_call_captured_into_a_graph(cuda_device, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [STAGES[0], (1001, 7)])
+def test_kernel_branch_reports_its_bytes(cuda_device, shape, dtype):
+    """The ctypes launch is invisible to the byte counter: its wrapper
+    reports ``bn_act_bytes`` (x, gamma, beta, y, mean, var once each),
+    and its ``y`` and scratch allocations and views count nothing, with
+    and without autograd; a capture counts its eager warm-up only."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import aot
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import profiler
+    x, gamma, beta = _stage_inputs(shape, dtype, cuda_device)
+    want = bn_act.bn_act_bytes(*shape, x.element_size())
+    with torch.no_grad():
+        _, costs = profiler.count_costs(
+            lambda: bn_act.bn_act(x, gamma, beta, 1e-5, 0.0))
+    assert costs == {"flops": 0.0, "bytes_accessed": float(want)}
+    xs = x.clone().requires_grad_(True)
+    _, costs = profiler.count_costs(
+        lambda: bn_act.bn_act(xs, gamma, beta, 1e-5, 0.0))
+    assert costs["bytes_accessed"] == want
+
+    def call(x, gamma, beta):
+        with torch.no_grad():
+            return bn_act.bn_act(x, gamma, beta, 1e-5, 0.0)
+
+    token = aot._COUNT_CAPTURE.set(True)
+    try:
+        graph = aot.GraphExec("bn_act", call, (x, gamma, beta))
+    finally:
+        aot._COUNT_CAPTURE.reset(token)
+    assert graph.costs["bytes_accessed"] == want
+    assert graph.costs["memory"]["argument_size_in_bytes"] == (
+        x.numel() * x.element_size() + 8 * shape[1])
+    assert graph.costs["memory"]["peak_bytes"] > 0
+    assert aot.GraphExec("bn_act", call, (x, gamma, beta)).costs is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_unaligned_view_takes_scalar_path(cuda_device, dtype):
     """A contiguous view one element into its storage is not 16-byte
     aligned: the same kernel runs with scalar loads and still agrees with

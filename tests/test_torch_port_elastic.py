@@ -454,8 +454,11 @@ def test_cli_gate_backfills_into_the_next_generation(tmp_path, monkeypatch):
                        ("MASTER_ADDR", "a"), ("MASTER_PORT", "1"),
                        ("MAML_FAULTS", "kill_peer@3")):
         monkeypatch.setenv(key, value)
+    # Unset, and recorded so that teardown also removes what the gate
+    # writes into os.environ (a delenv of an absent key records nothing).
     for key in (elastic.GEN_ENV, elastic.ROSTER_ENV, elastic.ORIG_ENV):
-        monkeypatch.delenv(key, raising=False)
+        monkeypatch.setenv(key, "0")
+        monkeypatch.delenv(key)
     real_wait = elastic.backfill_wait
     monkeypatch.setattr(elastic, "backfill_wait",
                         lambda d, h, s: real_wait(d, h, s, poll_s=0.1,

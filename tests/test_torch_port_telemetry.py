@@ -357,7 +357,8 @@ def test_profile_json_reads_in_the_jax_package(tmp_path):
     them."""
     peaks = prof.resolve_peaks("NVIDIA H100 80GB HBM3")
     cards = [prof.build_cost_card(prof.phase_card_name(so, msl),
-                                  flops=1e12 * (1 + so), kind="H100",
+                                  flops=1e12 * (1 + so),
+                                  bytes_accessed=1e9, kind="H100",
                                   peaks=peaks)
              for so, msl in ((False, True), (True, False))]
     path = str(tmp_path / "PROFILE.json")
