@@ -13,7 +13,9 @@ parity and accuracy gates:
 * :mod:`~.record` — the resumable ``TUNE.json`` ledger and the
   ``TUNED.json`` adoption record;
 * :mod:`~.trial` — the trial leg itself (imports torch; run as
-  ``python -m howtotrainyourmamlpytorch_tpu_torch.tune.trial``).
+  ``python -m howtotrainyourmamlpytorch_tpu_torch.tune.trial``);
+* :mod:`~.points` — the perf sweeps' measurement core (a grid's points,
+  each timed eager and through its CUDA graph, on :mod:`~.trial`).
 
 This package's ``__init__`` and the first three modules are stdlib only:
 the driver (``scripts/torch_autotune.py``) runs torch-free.

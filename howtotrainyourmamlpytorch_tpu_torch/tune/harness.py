@@ -116,10 +116,10 @@ def run_group(cmd: List[str], *, timeout_s: Optional[float],
     its end or ``timeout_s``: ``(stdout, stderr, returncode)``, the code
     None on a time-out. The group is killed on a time-out and whatever
     of it outlived the child is killed at the end."""
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, env=env,
-                            cwd=REPO, start_new_session=True)
-    group = reaper.track(reaper.Group(proc))
+    group = reaper.spawn(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, env=env,
+                         cwd=REPO, start_new_session=True)
+    proc = group.proc
     rc: Optional[int] = None
     try:
         try:

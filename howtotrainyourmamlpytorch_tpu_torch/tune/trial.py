@@ -21,6 +21,10 @@ set the step runs as the CUDA graph of its phase key
 Two warm-up steps come first, the first of them counted by
 ``FlopCounterMode``; then ``--steps`` timed steps in up to three windows,
 each closed by a loss fetch (the median window's rate is the value).
+:func:`run` also times another epoch or phase key (the perf sweeps'
+points, ``tune/points.py``); a graph that was not captured, or that
+rejected the step's arguments, raises rather than timing the eager step
+under its name.
 
 The last stdout line is the JAX contract's artifact,
 ``{"metric": "meta_tasks_per_sec_per_chip", "value": ..., "mfu": ...,
@@ -127,9 +131,12 @@ def apply_tuned_overrides(cfg: MAMLConfig, overrides: Dict[str, Any],
         task_microbatches=cfg.effective_task_microbatches(n_dev))
 
 
-def run(cfg: MAMLConfig, device, steps: int) -> Dict[str, Any]:
-    """Warm up, count one step's FLOPs, time ``steps`` steps; the
-    artifact's measured keys."""
+def run(cfg: MAMLConfig, device, steps: int, *, epoch=None,
+        phase_key=None, count: bool = True) -> Dict[str, Any]:
+    """Warm up, count one step's FLOPs (unless ``count`` is False), time
+    ``steps`` steps; the artifact's measured keys. ``epoch`` defaults to
+    the schedule's last, ``phase_key`` (``(second_order, use_msl)``) to
+    that epoch's."""
     import torch
 
     from howtotrainyourmamlpytorch_tpu_torch.device import (
@@ -148,8 +155,12 @@ def run(cfg: MAMLConfig, device, steps: int) -> Dict[str, Any]:
             "on the card the trial leg times the hand-written BN kernel: "
             "set bn_backend='pallas' in the config")
     aot.require_card(cfg, device)
-    epoch = max(cfg.total_epochs - 1, 0)
-    so, msl = cfg.use_second_order(epoch), cfg.use_msl(epoch)
+    if epoch is None:
+        epoch = max(cfg.total_epochs - 1, 0)
+    so, msl = phase_key or (cfg.use_second_order(epoch), cfg.use_msl(epoch))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t_start = time.perf_counter()
     with numerics_policy(cfg.compute_dtype, deterministic=True,
                          options=cfg.xla_compiler_options_dict):
         init, apply = make_model(cfg)
@@ -160,10 +171,11 @@ def run(cfg: MAMLConfig, device, steps: int) -> Dict[str, Any]:
         bn_act.reset_launches()
         # The first warm-up step is eager and counted (a graph replay
         # runs no torch op to count).
-        (state, m), flops = profiler.count_flops(
-            lambda: eager(state, batch, epoch, second_order=so,
-                          use_msl=msl))
-        step, aot_hits = eager, None
+        first = lambda: eager(state, batch, epoch, second_order=so,
+                              use_msl=msl)
+        (state, m), flops = (profiler.count_flops(first) if count
+                             else (first(), 0.0))
+        step, aot_hits, graph = eager, None, None
         if aot.enabled(cfg):
             store = aot.AOTStore.from_config(cfg, device)
             zero = aot.zero_episode(cfg, cfg.padded_batch_size, device)
@@ -172,7 +184,10 @@ def run(cfg: MAMLConfig, device, steps: int) -> Dict[str, Any]:
                 lambda: aot.TrainGraph(cfg, eager, (so, msl), state, zero,
                                        epoch),
                 aot.signature_of(state, zero), fallback=eager)
-            aot_hits = int(hit)
+            if not isinstance(step, aot.GuardedExec):
+                raise RuntimeError(f"the CUDA graph of phase {(so, msl)} "
+                                   f"was not captured (see the warning)")
+            aot_hits, graph = int(hit), step.compiled
         loss = float(m.loss)
         for _ in range(WARMUP - 1):
             state, m = step(state, batch, epoch, second_order=so,
@@ -180,6 +195,7 @@ def run(cfg: MAMLConfig, device, steps: int) -> Dict[str, Any]:
             loss = float(m.loss)
         windows = min(WINDOWS, max(steps, 1))
         per_window = max(1, steps // windows)
+        warmup_s = time.perf_counter() - t_start
         seconds = []
         for _ in range(windows):
             t0 = time.perf_counter()
@@ -191,6 +207,9 @@ def run(cfg: MAMLConfig, device, steps: int) -> Dict[str, Any]:
             if not math.isfinite(loss):
                 raise FloatingPointError(f"non-finite loss {loss}")
         launches = bn_act.launches
+        if graph is not None and step.compiled is None:
+            raise RuntimeError(f"the CUDA graph of phase {(so, msl)} "
+                               f"rejected the step's arguments")
     if (device.type == "cuda" and cfg.norm_layer == "batch_norm"
             and launches == 0):
         raise RuntimeError("the trial launched the BN kernel no time")
@@ -200,11 +219,15 @@ def run(cfg: MAMLConfig, device, steps: int) -> Dict[str, Any]:
     mfu = (flops / step_s / peaks["peak_flops"]
            if flops and peaks["peak_flops"] > 0 else None)
     return {"value": cfg.batch_size / step_s, "mfu": mfu,
-            "flops_per_task": flops / cfg.batch_size,
+            "flops_per_task": flops / cfg.batch_size if count else None,
             "peak_flops_source": peaks["source"], "device_kind": kind,
             "step_ms": step_s * 1e3, "steps": windows * per_window,
+            "warmup_s": warmup_s,
             "bn_launches": launches, "aot_hits": aot_hits, "loss": loss,
             "epoch": epoch, "second_order": so, "use_msl": msl,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else None),
+            "graph_memory": graph.exec.memory if graph is not None else None,
             "bitwise_resume": resume_is_bitwise(
                 cfg.xla_compiler_options_dict)}
 

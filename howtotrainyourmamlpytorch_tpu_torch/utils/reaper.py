@@ -8,15 +8,19 @@ and waited on: nothing it started outlives it.
 
     from howtotrainyourmamlpytorch_tpu_torch.utils import reaper
     reaper.install()                 # in main(): atexit + SIGTERM
-    proc = reaper.track(subprocess.Popen(...))
+    proc = reaper.spawn([...], stdout=..., ...)   # subprocess.Popen's args
 
 A child started in a session of its own (``start_new_session=True``)
-is tracked as its whole process group: ``reaper.track(reaper.Group(
-proc))``; :meth:`Group.end` ends the group at once (a time-out).
+is tracked as its whole process group: ``spawn`` then returns the
+:class:`Group`, whose :meth:`Group.end` ends the group at once (a
+time-out). ``track`` tracks a process started some other way.
 
 ``install`` turns SIGTERM into ``SystemExit(143)`` on the main thread,
 so ``finally`` blocks and the exit hook run; a handler someone else
-installed is left alone. Stdlib only.
+installed is left alone. A SIGTERM that arrives while ``spawn`` runs
+on the main thread is held until the new process is tracked: raised
+between the fork and the tracking, it would leave that process
+running untracked after the exit. Stdlib only.
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ from typing import Any, List
 _procs: List[Any] = []
 _lock = threading.Lock()
 _installed = False
+# Main-thread depth inside spawn(), and a SIGTERM held there.
+_spawning = 0
+_held = False
 
 
 class Group:
@@ -82,6 +89,24 @@ def track(proc: Any) -> Any:
     return proc
 
 
+def spawn(*args: Any, **kwargs: Any) -> Any:
+    """``subprocess.Popen(*args, **kwargs)``, tracked before a SIGTERM
+    on the main thread can end this process: returns the process, or its
+    :class:`Group` when it starts a session of its own."""
+    global _spawning, _held
+    main = threading.current_thread() is threading.main_thread()
+    _spawning += main
+    try:
+        proc = subprocess.Popen(*args, **kwargs)
+        return track(Group(proc) if kwargs.get("start_new_session")
+                     else proc)
+    finally:
+        _spawning -= main
+        if main and not _spawning and _held:
+            _held = False
+            raise SystemExit(128 + signal.SIGTERM)
+
+
 def reap(grace_s: float = 5.0) -> int:
     """Terminate every tracked process still running, kill what is left
     after ``grace_s`` and wait on each; returns how many were running."""
@@ -107,6 +132,10 @@ def reap(grace_s: float = 5.0) -> int:
 
 
 def _on_sigterm(signum, frame) -> None:
+    global _held
+    if _spawning:
+        _held = True
+        return
     raise SystemExit(128 + signal.SIGTERM)
 
 

@@ -195,7 +195,7 @@ def make_spawn(out: str, cfg_path: str, ckpt_dir: str, fleet_dir: str,
                 else os.path.join(out, "no_such_checkpoint"))
         log = open(os.path.join(out, f"replica_{slot}.log"), "a")
         try:
-            return reaper.track(subprocess.Popen(
+            return reaper.spawn(
                 [sys.executable, "-m",
                  "howtotrainyourmamlpytorch_tpu_torch.serve.fleet.replica",
                  "--config", cfg_path, "--replica-id", str(slot),
@@ -203,7 +203,7 @@ def make_spawn(out: str, cfg_path: str, ckpt_dir: str, fleet_dir: str,
                  "--events",
                  os.path.join(out, f"events_replica_{slot}.jsonl"),
                  "--device", device],
-                cwd=_REPO, stdout=log, stderr=subprocess.STDOUT))
+                cwd=_REPO, stdout=log, stderr=subprocess.STDOUT)
         finally:
             log.close()  # the child holds its own inherited fd
     return spawn

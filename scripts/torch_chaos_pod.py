@@ -276,10 +276,10 @@ def launch_pod(out: str, cfg: dict, n: int, device: str, records: str,
         if fault_host is not None and r == fault_host:
             env["MAML_FAULTS"] = fault_spec
         log = open(os.path.join(out, f"{tag}{r}.log"), "w")
-        procs.append(reaper.track(subprocess.Popen(
+        procs.append(reaper.spawn(
             [sys.executable, "-c", RANK_CHILD, _SCRIPTS, records, device,
              cfg_path] + list((extra or {}).get(r, [])),
-            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=_REPO)))
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=_REPO))
         log.close()
     return procs
 
@@ -810,11 +810,11 @@ def run_prewarm(out: str, cfg: dict, timeout: float) -> dict:
     with open(path, "w") as f:
         json.dump(cfg, f)
     with open(os.path.join(out, "prewarm.log"), "w") as log:
-        proc = reaper.track(subprocess.Popen(
+        proc = reaper.spawn(
             [sys.executable, os.path.join(_SCRIPTS, "torch_aot_prewarm.py"),
              "--config", path, "--degraded", "1", "--degraded-only"],
             env=base_env(), stdout=subprocess.PIPE, stderr=log, text=True,
-            cwd=_REPO))
+            cwd=_REPO)
     try:
         stdout, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:

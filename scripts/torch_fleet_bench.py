@@ -293,10 +293,10 @@ def prepare_checkpoint(out: str, cfg_path: str, ckpt_dir: str,
 
 def _run_child(mode: str, cfg_path: str, ckpt_dir: str, out: str):
     log = open(os.path.join(out, f"{mode}.log"), "w")
-    proc = reaper.track(subprocess.Popen(
+    proc = reaper.spawn(
         [sys.executable, os.path.abspath(__file__), "--mode", mode,
          "--config-path", cfg_path, "--ckpt-dir", ckpt_dir, "--out", out],
-        cwd=_REPO, stdout=log, stderr=subprocess.STDOUT))
+        cwd=_REPO, stdout=log, stderr=subprocess.STDOUT)
     rc = proc.wait()
     log.close()
     if rc != 0:
@@ -376,14 +376,14 @@ def start_replicas(out: str, cfg_path: str, ckpt_dir: str,
     procs = {}
     for rid in ids:
         log = open(os.path.join(out, f"replica_{rid}.log"), "w")
-        procs[rid] = (reaper.track(subprocess.Popen(
+        procs[rid] = (reaper.spawn(
             [sys.executable, "-m",
              "howtotrainyourmamlpytorch_tpu_torch.serve.fleet.replica",
              "--config", cfg_path, "--replica-id", str(rid),
              "--fleet-dir", fleet_dir, "--checkpoint", ckpt_dir,
              "--events", os.path.join(out, f"events_replica_{rid}.jsonl"),
              "--device", device],
-            cwd=_REPO, stdout=log, stderr=subprocess.STDOUT)), log)
+            cwd=_REPO, stdout=log, stderr=subprocess.STDOUT), log)
     return procs
 
 

@@ -177,3 +177,38 @@ def test_reaper_terminates_and_waits_on_what_it_tracks():
     assert reaper.reap(grace_s=5.0) == 1
     assert child.returncode is not None and child.returncode != 0
     assert reaper.reap() == 0
+
+
+# A SIGTERM that lands between a child's fork and its tracking: the
+# process it started must still be reaped (the harness's exit hook).
+_SPAWN_UNDER_SIGTERM = r"""
+import os, signal, subprocess, sys
+from howtotrainyourmamlpytorch_tpu_torch.utils import reaper
+reaper.install()
+real = subprocess.Popen
+
+class Popen(real):
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        with open(sys.argv[1], "w") as f:
+            f.write(str(self.pid))
+        os.kill(os.getpid(), signal.SIGTERM)   # before spawn() tracks it
+
+subprocess.Popen = Popen
+reaper.spawn([sys.executable, "-c", "import time; time.sleep(60)"])
+print("not reached")
+"""
+
+
+def test_sigterm_inside_spawn_is_held_until_the_child_is_tracked(tmp_path):
+    import signal
+    pid_file = tmp_path / "pid"
+    res = subprocess.run(
+        [sys.executable, "-c", _SPAWN_UNDER_SIGTERM, str(pid_file)],
+        capture_output=True, text=True, timeout=60, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 128 + signal.SIGTERM, res.stderr
+    assert "not reached" not in res.stdout
+    pid = int(pid_file.read_text())
+    assert not os.path.exists(f"/proc/{pid}") or open(
+        f"/proc/{pid}/stat").read().split(") ")[1][0] == "Z"

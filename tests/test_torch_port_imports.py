@@ -40,12 +40,14 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
 PORT_SCRIPTS = ("torch_accuracy_gate", "torch_aot_prewarm",
-                "torch_autotune", "torch_chaos_fleet", "torch_chaos_pod",
-                "torch_chaos_run",
+                "torch_autotune", "torch_bf16_drift", "torch_chaos_fleet",
+                "torch_chaos_pod", "torch_chaos_run",
                 "torch_ckpt_admin", "torch_dataset_pack",
                 "torch_fleet_bench", "torch_generate_scripts",
-                "torch_ops_console", "torch_perf_report",
-                "torch_perf_window_probe",
+                "torch_ops_console", "torch_perf_eval", "torch_perf_msl",
+                "torch_perf_microbatch_sweep", "torch_perf_report",
+                "torch_perf_resnet12_sweep", "torch_perf_sweep",
+                "torch_perf_variants", "torch_perf_window_probe",
                 "torch_serve_bench", "torch_serve_profile",
                 "torch_slo_report", "torch_telemetry_report",
                 "torch_trace_export", "torch_traffic_replay",
